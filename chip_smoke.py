@@ -4,25 +4,38 @@
     python3 chip_smoke.py [--out DIR]
 
 Needs one CUDA card and `nvcc`; imports no JAX. Phases:
-  (a) build the three CUDA kernels from `density_tpu_torch/csrc/`;
+  (a) build the five CUDA kernels from `density_tpu_torch/csrc/`;
   (b) hold each kernel against its plain PyTorch version on the card,
-      bit for bit, at the main path's shapes (and a malformed-offset
-      case that must raise DecodeError);
+      bit for bit, at the shapes of the paths below (and a
+      malformed-offset case that must raise DecodeError); bitonic must
+      also equal bigsort;
   (c) the main path: chameleon compress and decompress on the card of a
       10,192,446-byte text corpus in 256 KiB streams, with every
       kernel's launch count read around it; stream bytes held against
       the port's CPU path and its scalar encoder, and the golden vector;
   (d) incompressible and mixed inputs (fixed point, copy blocks, ragged
       lengths);
-  (e) the launch counts of (c);
-  (f) timings: device-resident encode and decode with CUDA events; the
-      device time of each kernel, its plain version and the library call
-      beside it, from torch.profiler; then one profiler trace each of
-      encode and decode (device busy share, the kernels that take it).
+  (e) the launch counts: bigsort, packroute and unpack from (c), pack
+      from (g), bitonic from (h);
+  (f) timings: device-resident encode and decode with CUDA events, at
+      256 KiB, 32 KiB and 16 KiB streams; the device time of each
+      kernel, its plain version and the library call beside it, from
+      torch.profiler; one profiler trace each of encode and decode at
+      256 KiB and 32 KiB; the encode with the default sort and under
+      DENSITY_TPU_SORT=bitonic, in turns;
+  (g) small streams: the corpus in 32 KiB and 16 KiB streams (4096- and
+      8192-quad shapes, the pack kernel), compress and decompress on the
+      card with launch counts, three streams of each held against the
+      CPU path;
+  (h) the options: DENSITY_TPU_SORT=bitonic (the planner on the bitonic
+      kernel) at 256 KiB and 32 KiB streams, and pack mode "onehot" at
+      256 KiB, each byte-identical to the default containers;
+  (i) the one-shot API: `encode_raw`/`decode_raw` on the card against
+      the scalar backend and the CPU path.
 Prints the card's name and power limit, a `kernels` JSON line and, last,
 the device JSON line. Any failure exits non-zero. Writes the compiler's
 register report to `DIR/ptxas.txt` and the profiles to
-`DIR/profile_{encode,decode}.txt` (DIR: `--out`, by default `smoke_out`).
+`DIR/profile_*.txt` (DIR: `--out`, by default `smoke_out`).
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ import time
 import numpy as np
 
 STREAM = 256 << 10  # bytes per stream of the device grain
+SMALL_STREAMS = (32 << 10, 16 << 10)  # 8192- and 4096-quad streams
 CORPUS_SIZE = 10_192_446
 REPEATS = 5  # timing windows of the device-resident encode and decode
 OUT_DIR = "smoke_out"  # reports too long for the standard output
@@ -50,7 +64,10 @@ REPLACES = {
     "bigsort": "density_tpu/kernels/bigsort.py:166",
     "packroute": "density_tpu/kernels/packroute.py:161",
     "unpack": "density_tpu/kernels/unpack.py:379",
+    "pack": "density_tpu/kernels/pack.py:279",
+    "bitonic": "density_tpu/kernels/bitonic.py:121",
 }
+CHAM = dict(q=64, sig_words=4, block=256, flag_bits=1)
 
 
 def log(*a):
@@ -146,6 +163,48 @@ def bound_ms(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sort_bound(S: int, N: int, n_arrays: int):
+    """Each array read and written once; about N log2 N compares a row."""
+    return bound_ms(2 * n_arrays * S * N * 4, S * N * np.log2(N))
+
+
+def pack_bound(S: int, N: int, q: int, sig_words: int):
+    """Four int32 token arrays and nbytes read, the int32 output words
+    written, once."""
+    from density_tpu_torch.kernels import packroute
+    ow = packroute.out_width(N, q, sig_words)
+    return bound_ms(4 * S * N * 4 + S * 4 + S * ow * 4, 0)
+
+
+def kernel_modules() -> dict:
+    from density_tpu_torch.kernels import (
+        bigsort, bitonic, pack, packroute, unpack)
+    return {"bigsort": bigsort, "packroute": packroute, "unpack": unpack,
+            "pack": pack, "bitonic": bitonic}
+
+
+def reset_counts() -> None:
+    for m in kernel_modules().values():
+        m.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: m.launches for k, m in kernel_modules().items()}
+
+
+def geometry_tokens(rng, S: int, N: int, q: int, flag_bits: int, nbytes):
+    """Seeded flags with their payload words (zero past nbytes // 4) and
+    random w0/w1, as a cheetah (2-bit) or lion (3-bit) plan has them."""
+    import torch
+    from density_tpu_torch.kernels import unpack
+    real = np.arange(N)[None, :] < (nbytes[:, None] // 4)
+    flags = np.where(real, rng.integers(0, 1 << flag_bits, (S, N)), 0)
+    pw = unpack.flag_payload_words(torch.from_numpy(flags), flag_bits)
+    pw = np.where(real, pw.numpy(), 0)
+    w0, w1 = (rng.integers(0, 1 << 16, (S, N)) for _ in range(2))
+    return [torch.from_numpy(x.astype(np.int32)) for x in (flags, pw, w0, w1)]
+
+
 # ---------------------------------------------------------------- phases
 
 def phase_build() -> None:
@@ -164,25 +223,26 @@ def phase_build() -> None:
                 log(f"    {name}: {line.strip()}")
 
 
-def main_path_inputs(dev, data: bytes):
-    """Staged encode inputs of the 38 full streams, the plan the main
-    path hands the pack kernel, and the staged decode inputs."""
+def path_inputs(dev, data: bytes, stream: int = STREAM):
+    """Staged encode inputs of the full streams of `stream` bytes (38 at
+    the main path's 256 KiB), the plan the path hands its pack kernel,
+    and the staged decode inputs."""
     import torch
     from density_tpu_torch import container
     from density_tpu_torch.codecs import chameleon
     from density_tpu_torch.engine import layout
     from density_tpu_torch.parallel import sharding
-    s_full = len(data) // STREAM
+    s_full = len(data) // stream
     buf = np.frombuffer(data, np.uint8)
     quads, nbytes = sharding.stage_encode(
-        buf[:s_full * STREAM], s_full * STREAM, s_full,
-        layout.bucket_bytes(STREAM, 256), STREAM, dev)
+        buf[:s_full * stream], s_full * stream, s_full,
+        layout.bucket_bytes(stream, 256), stream, dev)
     # three streams end ragged (tails 1, 3 and 555 bytes)
     nb_rag = nbytes.clone()
     nb_rag[1:4] -= torch.tensor([1, 3, 555], dtype=torch.int32, device=dev)
     flags, pw, w0, w1, _, _ = chameleon.plan_fast(quads, nb_rag)
     w0, w1 = layout.stamp_ragged(quads, nb_rag, w0, w1)
-    blob = container.compress(data[:s_full * STREAM], "chameleon", STREAM,
+    blob = container.compress(data[:s_full * stream], "chameleon", stream,
                               device=dev)
     dargs, streams, _ = sharding.decode_prep(blob, dev)
     live_bytes = sum(len(s) for s in streams)  # compressed payload
@@ -198,7 +258,7 @@ def phase_parity(dev, data: bytes, rnd: bytes):
     from density_tpu_torch.parallel import sharding
     errs = {}
     rng = np.random.default_rng(0)
-    inputs = main_path_inputs(dev, data)
+    inputs = path_inputs(dev, data)
     quads, nbytes, pack_in, dargs, _ = inputs
     S, N = quads.shape
     # sort: the encode's forward sort (biased hash|index key + quad), a
@@ -248,7 +308,6 @@ def phase_parity(dev, data: bytes, rnd: bytes):
     got = unpack.unpack(rw, rwo, rcp, **ukw)
     torch.cuda.synchronize()
     err = max(err, max_abs_err(got, unpack.unpack_plain(rw, rwo, rcp, **ukw)))
-    errs["unpack"] = err
     bad = woff_k.clone()
     bad[0, 5] = words.shape[1] + 7
     try:
@@ -260,22 +319,90 @@ def phase_parity(dev, data: bytes, rnd: bytes):
     torch.cuda.synchronize()
     log(f"(b) unpack: main path + copy blocks, max_abs_err {err}; "
         "malformed offset raised DecodeError")
-    return errs, inputs
+
+    # the small-stream paths (and their 4096-quad decode)
+    small = {stream: path_inputs(dev, data, stream) for stream in SMALL_STREAMS}
+    for stream, (_, _, _, (w, wo, cp, nbr, _), _) in small.items():
+        wl = torch.where(torch.arange(wo.shape[1], device=dev)[None, :]
+                         < nbr[:, None], wo, -1)
+        got = unpack.unpack(w, wl, cp, **ukw)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, unpack.unpack_plain(w, wl, cp, **ukw)))
+    errs["unpack"] = err
+    log(f"(b) unpack: NB*64 = 8192 and 4096 (small streams), "
+        f"max_abs_err {err}")
+    errs.update(parity_small(dev, inputs, small))
+    return errs, inputs, small
+
+
+def parity_small(dev, inputs, small):
+    """The pack and bitonic kernels against their plain versions (and
+    bitonic against bigsort) on the card, bit-exact."""
+    import torch
+    from density_tpu_torch.engine import grouping
+    from density_tpu_torch.kernels import bigsort, bitonic, pack
+    errs = {}
+    rng = np.random.default_rng(4)
+    # pack: chameleon plans of the corpus at 8192, 4096 and 65536 quads
+    # (three streams ragged), then the cheetah and lion geometries
+    cases = [(small[st][2], CHAM) for st in SMALL_STREAMS]
+    cases.append((inputs[2], CHAM))
+    for (q, sw, fb), N in (((32, 4, 2), 8192), ((16, 3, 3), 4096)):
+        nb = np.full(64, 4 * N, np.int32)
+        nb[1:5] -= np.array([1, 3, 555, 4 * N - 999], np.int32)
+        toks = geometry_tokens(rng, 64, N, q, fb, nb)
+        cases.append(([x.to(dev) for x in toks]
+                      + [torch.from_numpy(nb).to(dev)],
+                      dict(q=q, sig_words=sw, block=4 * q, flag_bits=fb)))
+    err = 0
+    for args, kw in cases:
+        got = pack.pack(*args, **kw)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, pack.pack_plain(*args, **kw))
+        log(f"(b) pack: S={args[0].shape[0]} N={args[0].shape[1]} "
+            f"q={kw['q']} flag_bits={kw['flag_bits']}, max_abs_err {e}")
+        err = max(err, e)
+    errs["pack"] = err
+
+    # bitonic: the planners' forward sorts, then random keys with ties
+    sorts = []
+    for quads in (small[SMALL_STREAMS[1]][0], inputs[0]):
+        S, N = quads.shape
+        key = ((grouping.hash_quads(quads) << 16)
+               | torch.arange(N, dtype=torch.int32, device=dev)) ^ (-2**31)
+        sorts.append(((key, quads), 1))
+    for (S, N), na, nk in [((16, 4096), 3, 2), ((8, 16384), 3, 2),
+                           ((4, 16384), 1, 1), ((4, 65536), 3, 2),
+                           ((2, 1 << 17), 2, 2), ((2, 1 << 17), 1, 1)]:
+        arrs = [torch.from_numpy(rng.integers(-60, 60, (S, N)).astype(
+            np.int32)).to(dev) for _ in range(nk)]
+        arrs += [torch.from_numpy(rng.integers(
+            -2**31, 2**31, (S, N), dtype=np.int64).astype(np.int32)).to(dev)
+            for _ in range(na - nk)]
+        sorts.append((tuple(arrs), nk))
+    err = 0
+    for arrs, nk in sorts:
+        got = bitonic.sort(*arrs, n_keys=nk)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, bitonic.sort_plain(*arrs, n_keys=nk)))
+        if max_abs_err(got, bigsort.sort(*arrs, n_keys=nk)):
+            raise AssertionError("bitonic differs from bigsort")
+    errs["bitonic"] = err
+    log(f"(b) bitonic: {len(sorts)} cases (N 4096-131072, 1-2 keys, 1-3 "
+        f"arrays), max_abs_err {err}, equal to bigsort")
+    return errs
 
 
 def phase_main_path(dev, data: bytes):
     """Chameleon compress + decompress on the card, counted."""
     from density_tpu_torch import container, host_scan
     from density_tpu_torch.codecs import chameleon
-    from density_tpu_torch.kernels import bigsort, packroute, unpack
-    mods = {"bigsort": bigsort, "packroute": packroute, "unpack": unpack}
-    for m in mods.values():
-        m.launches = 0
+    reset_counts()
     t = time.time()
     blob = container.compress(data, "chameleon", STREAM, device=dev)
     back = container.decompress(blob, device=dev)
     dt = time.time() - t
-    counts = {k: m.launches for k, m in mods.items()}
+    counts = read_counts()
     if back != data:
         raise AssertionError("main path round trip differs from the input")
     parts = payloads(blob)
@@ -296,7 +423,7 @@ def phase_main_path(dev, data: bytes):
         f"{len(blob)} bytes (ratio {len(data) / len(blob):.4f}), round trip "
         f"exact in {dt:.2f} s host wall; streams 0/{len(parts) - 1} equal "
         "the CPU path, stream 1 the scalar encoder; golden vector exact")
-    return counts
+    return counts, blob
 
 
 def phase_incompressible(dev, rnd: bytes):
@@ -320,13 +447,108 @@ def phase_incompressible(dev, rnd: bytes):
             f"exact, streams 0/{last} equal the scalar encoder")
 
 
-def phase_timing(dev, inputs, data: bytes):
-    import torch
+def phase_small_streams(dev, data: bytes):
+    """Compress and decompress the corpus in 32 KiB and 16 KiB streams on
+    the card, counted; three streams of each against the CPU path."""
+    from density_tpu_torch import container
+    reset_counts()
+    blobs = {}
+    for stream in SMALL_STREAMS:
+        t = time.time()
+        blob = container.compress(data, "chameleon", stream, device=dev)
+        back = container.decompress(blob, device=dev)
+        dt = time.time() - t
+        if back != data:
+            raise AssertionError(f"{stream}-byte streams: round trip differs")
+        parts = payloads(blob)
+        if len(parts) != -(-len(data) // stream):
+            raise AssertionError("wrong stream count")
+        for i in (0, len(parts) // 2, len(parts) - 1):
+            cpu = payloads(container.compress(
+                data[i * stream:(i + 1) * stream], "chameleon", stream,
+                device="cpu"))
+            if cpu != [parts[i]]:
+                raise AssertionError(f"{stream}-byte stream {i} differs "
+                                     "from the CPU path")
+        blobs[stream] = blob
+        log(f"(g) {stream}-byte streams: {len(data)} bytes in {len(parts)} "
+            f"streams (tail {len(data) % stream} bytes) -> {len(blob)} bytes "
+            f"(ratio {len(data) / len(blob):.4f}), round trip exact in "
+            f"{dt:.2f} s host wall; streams 0/{len(parts) // 2}/"
+            f"{len(parts) - 1} equal the CPU path")
+    counts = read_counts()
+    log(f"(g) launches on the small-stream paths: {counts}")
+    if counts["pack"] < 1 or counts["bigsort"] < 1 or counts["unpack"] < 1:
+        raise AssertionError(f"a kernel of the path was not launched: {counts}")
+    if counts["packroute"] != 0:
+        raise AssertionError("small streams went through packroute")
+    return counts, blobs
+
+
+def phase_options(dev, data: bytes, main_blob: bytes, small_blob: bytes):
+    """DENSITY_TPU_SORT=bitonic and pack mode "onehot" give the default
+    containers byte for byte; the bitonic path's counts are returned."""
+    from density_tpu_torch import container
+    from density_tpu_torch.engine import layout
+    stream = SMALL_STREAMS[0]
+    reset_counts()
+    os.environ["DENSITY_TPU_SORT"] = "bitonic"
+    try:
+        big = container.compress(data, "chameleon", STREAM, device=dev)
+        small = container.compress(data, "chameleon", stream, device=dev)
+        back = container.decompress(small, device=dev)
+    finally:
+        del os.environ["DENSITY_TPU_SORT"]
+    counts = read_counts()
+    if big != main_blob or small != small_blob or back != data:
+        raise AssertionError("DENSITY_TPU_SORT=bitonic changed a container")
+    if counts["bitonic"] < 1:
+        raise AssertionError(f"the bitonic kernel was not launched: {counts}")
+    log(f"(h) DENSITY_TPU_SORT=bitonic: {STREAM}- and {stream}-byte "
+        f"containers byte-identical to the default; launches {counts}")
+    reset_counts()
+    mode, layout.PACK_MODE = layout.PACK_MODE, "onehot"
+    try:
+        onehot = container.compress(data, "chameleon", STREAM, device=dev)
+    finally:
+        layout.PACK_MODE = mode
+    onehot_counts = read_counts()
+    if onehot != main_blob:
+        raise AssertionError("pack mode onehot changed the container")
+    if onehot_counts["pack"] < 1 or onehot_counts["packroute"] != 0:
+        raise AssertionError(f"onehot did not go through pack: "
+                             f"{onehot_counts}")
+    log(f"(h) pack mode onehot: {STREAM}-byte container byte-identical to "
+        f"the default; launches {onehot_counts}")
+    return counts
+
+
+def phase_api(dev, data: bytes) -> None:
+    """encode_raw/decode_raw on the card against the scalar backend and
+    the CPU path."""
+    from density_tpu_torch import api
+    msgs = [data[7 * n:8 * n] for n in (0, 1, 255, 1000, 16384, 32771)]
+    msgs.append(np.random.default_rng(5).integers(
+        0, 256, 32 << 10, dtype=np.uint8).tobytes())
+    for msg in msgs:
+        enc = api.encode_raw(msg, device=dev)
+        if (enc != api.encode_raw(msg, backend="scalar")
+                or enc != api.encode_raw(msg, device="cpu")):
+            raise AssertionError(f"encode_raw of {len(msg)} bytes differs")
+        for dec in (api.decode_raw(enc, device=dev),
+                    api.decode_raw(enc, backend="scalar"),
+                    api.decode_raw(enc, device="cpu")):
+            if dec != msg:
+                raise AssertionError(f"decode_raw of {len(msg)} bytes differs")
+    log(f"(i) encode_raw/decode_raw on the card: {[len(m) for m in msgs]} "
+        "bytes, equal to the scalar backend and the CPU path")
+
+
+def time_paths(name: str, quads, nbytes, dargs):
+    """Median of REPEATS windows of the device-resident encode and decode."""
     from density_tpu_torch.codecs import chameleon
-    from density_tpu_torch.engine import grouping, layout
-    from density_tpu_torch.kernels import bigsort, packroute, unpack
+    from density_tpu_torch.engine import layout
     from density_tpu_torch.parallel import sharding
-    quads, nbytes, pack_in, dargs, live_bytes = inputs
     S, N = quads.shape
     enc_bytes = int(nbytes.sum())
 
@@ -338,35 +560,125 @@ def phase_timing(dev, inputs, data: bytes):
     # both are bound by the host, whose speed varies from call to call:
     # the median of REPEATS windows of 10 calls each, with the range
     times = {}
-    for name, fn in (("encode", enc),
+    for what, fn in (("encode", enc),
                      ("decode", lambda: sharding.decode_batch(*dargs))):
         runs = sorted(timed_ms(fn) for _ in range(REPEATS))
-        times[name] = statistics.median(runs)
-        log(f"(f) device-resident {name} S={S} N={N}: median "
-            f"{times[name]:.3f} ms = {enc_bytes / times[name] / 1e6:.3f} "
+        times[what] = statistics.median(runs)
+        log(f"(f) device-resident {what} {name} S={S} N={N}: median "
+            f"{times[what]:.3f} ms = {enc_bytes / times[what] / 1e6:.3f} "
             f"GB/s of input (range {runs[0]:.3f}-{runs[-1]:.3f} ms, "
             f"{REPEATS} windows of 10 calls)")
-    enc_ms, dec_ms = times["encode"], times["decode"]
+    return enc
+
+
+def phase_small_timing(dev, inputs, small):
+    """Small-stream encode/decode throughput; the pack and bitonic rows."""
+    import torch
+    from density_tpu_torch.engine import grouping
+    from density_tpu_torch.kernels import bitonic, pack
+    from density_tpu_torch.parallel import sharding
+    encs = {}
+    for stream in SMALL_STREAMS:
+        quads, nbytes, _, dargs, _ = small[stream]
+        encs[stream] = time_paths(f"{stream >> 10} KiB", quads, nbytes,
+                                  dargs)
+    rows = {}
+    shapes = [(small[st][2], f"{st >> 10} KiB") for st in SMALL_STREAMS]
+    shapes.append((inputs[2], "256 KiB, onehot"))
+    for i, (pack_in, what) in enumerate(shapes):
+        S, N = pack_in[0].shape
+        r = dict(
+            ms=device_ms(lambda: pack.pack(*pack_in, **CHAM)),
+            plain_ms=device_ms(lambda: pack.pack_plain(*pack_in, **CHAM),
+                               iters=3),
+            library_ms=None, bound=pack_bound(S, N, 64, 4),
+            shape=f"S={S} N={N}, {what}; 1 launch per encode call")
+        log_row("pack", r)
+        if i == 0:
+            rows["pack"] = r
+    # the planner's forward sort: the main path's shape under the option
+    # first (its row), then the 32 KiB path's, which fits in shared memory
+    for i, quads in enumerate((inputs[0], small[SMALL_STREAMS[0]][0])):
+        S, N = quads.shape
+        key = ((grouping.hash_quads(quads) << 16)
+               | torch.arange(N, dtype=torch.int32, device=dev)) ^ (-2**31)
+        r = dict(
+            ms=device_ms(lambda: bitonic.sort(key, quads, n_keys=1)),
+            plain_ms=device_ms(
+                lambda: bitonic.sort_plain(key, quads, n_keys=1), iters=2),
+            library_ms=device_ms(lambda: torch.sort(key, dim=1)),
+            bound=sort_bound(S, N, 2),
+            shape=f"S={S} N={N} 1 key 2 arrays; 1 launch per sort, 2 sorts "
+                  "per encode call")
+        log_row("bitonic", r)
+        if i == 0:
+            rows["bitonic"] = r
+    st = SMALL_STREAMS[0]
+    phase_profile({"small_encode": encs[st], "small_decode":
+                   lambda: sharding.decode_batch(*small[st][3])})
+    time_sort_option(inputs, small)
+    return rows
+
+
+def time_sort_option(inputs, small) -> None:
+    """Encode with the default sort and under DENSITY_TPU_SORT=bitonic,
+    in turns (default, bitonic, bitonic, default; 2 windows of 10 calls
+    each turn), with each one's device time per call: does one launch
+    per sort instead of bigsort's several show end to end?"""
+    from density_tpu_torch.codecs import chameleon
+    from density_tpu_torch.engine import layout
+    for name, (quads, nbytes) in (("256 KiB", inputs[:2]),
+                                  ("32 KiB", small[SMALL_STREAMS[0]][:2])):
+        def enc():
+            return layout.run_encode(chameleon.PIPELINE, quads, nbytes)
+        runs = {"default": [], "bitonic": []}
+        dev_ms = {}
+        for which in ("default", "bitonic", "bitonic", "default"):
+            if which == "bitonic":
+                os.environ["DENSITY_TPU_SORT"] = "bitonic"
+            try:
+                runs[which] += [timed_ms(enc) for _ in range(2)]
+                dev_ms.setdefault(which, device_ms(enc, iters=5))
+            finally:
+                os.environ.pop("DENSITY_TPU_SORT", None)
+        for which, r in runs.items():
+            r.sort()
+            log(f"(f) encode {name} S={quads.shape[0]} N={quads.shape[1]}, "
+                f"sort {which}: median {statistics.median(r):.3f} ms "
+                f"(range {r[0]:.3f}-{r[-1]:.3f}, {len(r)} windows of 10 "
+                f"calls, in turns), device {dev_ms[which]:.4f} ms per call")
+
+
+def log_row(name: str, r: dict) -> None:
+    lib = f"{r['library_ms']:.4f}" if r["library_ms"] is not None else "n/a"
+    log(f"(f) {name} [{r['shape']}]: device {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
+        f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+
+
+def phase_timing(dev, inputs, data: bytes):
+    import torch
+    from density_tpu_torch.engine import grouping
+    from density_tpu_torch.kernels import bigsort, packroute, unpack
+    from density_tpu_torch.parallel import sharding
+    quads, nbytes, pack_in, dargs, live_bytes = inputs
+    S, N = quads.shape
+    enc = time_paths("256 KiB", quads, nbytes, dargs)
 
     rows = {}
     key = ((grouping.hash_quads(quads) << 16)
            | torch.arange(N, dtype=torch.int32, device=dev)) ^ (-2**31)
-    sort_bytes = 2 * 2 * S * N * 4
     rows["bigsort"] = dict(
         ms=device_ms(lambda: bigsort.sort(key, quads, n_keys=1)),
         plain_ms=device_ms(
             lambda: bigsort.sort_plain(key, quads, n_keys=1), iters=2),
         library_ms=device_ms(lambda: torch.sort(key, dim=1)),
-        bound=bound_ms(sort_bytes, S * N * np.log2(N)),
-        shape=f"S={S} N={N} 1 key 2 arrays")
-    kw = dict(q=64, sig_words=4, block=256, flag_bits=1)
-    out_w = packroute.out_width(N, 64, 4)
+        bound=sort_bound(S, N, 2), shape=f"S={S} N={N} 1 key 2 arrays")
     rows["packroute"] = dict(
-        ms=device_ms(lambda: packroute.pack(*pack_in, **kw)),
+        ms=device_ms(lambda: packroute.pack(*pack_in, **CHAM)),
         plain_ms=device_ms(
-            lambda: packroute.pack_plain(*pack_in, **kw), iters=3),
-        library_ms=None,
-        bound=bound_ms(4 * S * N * 4 + S * 4 + S * out_w * 4, 0),
+            lambda: packroute.pack_plain(*pack_in, **CHAM), iters=3),
+        library_ms=None, bound=pack_bound(S, N, 64, 4),
         shape=f"S={S} N={N}")
     words, woff, is_copy, nb_real, _ = dargs
     live = torch.arange(woff.shape[1], device=dev)[None, :] < nb_real[:, None]
@@ -384,14 +696,10 @@ def phase_timing(dev, inputs, data: bytes):
                        0),
         shape=f"S={S} W={W} NB={NB}")
     for name, r in rows.items():
-        lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
-               else "n/a")
-        log(f"(f) {name} [{r['shape']}]: device {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
-            f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+        log_row(name, r)
     phase_profile({"encode": enc,
                    "decode": lambda: sharding.decode_batch(*dargs)})
-    return rows, enc_ms, dec_ms
+    return rows
 
 
 def phase_profile(fns) -> None:
@@ -456,13 +764,24 @@ def main() -> int:
         raise AssertionError("corpus size")
     rnd = np.random.default_rng(1).integers(0, 256, 1 << 20,
                                             dtype=np.uint8).tobytes()
-    errs, inputs = phase_parity(dev, data, rnd)
-    counts = phase_main_path(dev, data)
+    errs, inputs, small = phase_parity(dev, data, rnd)
+    main_counts, main_blob = phase_main_path(dev, data)
     phase_incompressible(dev, rnd)
-    log(f"(e) launches on the main path: {counts}")
+    small_counts, small_blobs = phase_small_streams(dev, data)
+    opt_counts = phase_options(dev, data, main_blob,
+                               small_blobs[SMALL_STREAMS[0]])
+    phase_api(dev, data)
+    # each kernel's count from its own path's counted run
+    counts = {k: main_counts[k] for k in ("bigsort", "packroute", "unpack")}
+    counts["pack"] = small_counts["pack"]
+    counts["bitonic"] = opt_counts["bitonic"]
+    log(f"(e) launches: bigsort/packroute/unpack on the main path (c), "
+        f"pack on the small-stream paths (g), bitonic under "
+        f"DENSITY_TPU_SORT=bitonic (h): {counts}")
     if min(counts.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {counts}")
-    rows, _, _ = phase_timing(dev, inputs, data)
+    rows = phase_timing(dev, inputs, data)
+    rows.update(phase_small_timing(dev, inputs, small))
     kernels = [dict(name=name, route="cuda",
                     source=f"density_tpu_torch/csrc/{name}.cu",
                     replaces=REPLACES[name], launches=counts[name],

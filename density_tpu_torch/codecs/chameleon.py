@@ -15,6 +15,8 @@ to stream order.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from density_tpu_torch.constants import CHAMELEON as SPEC
@@ -22,7 +24,7 @@ from density_tpu_torch.constants import HASH_MULTIPLIER_I32
 from density_tpu_torch.engine import layout
 from density_tpu_torch.engine.grouping import (
     hash_quads, prev_valid_value_in_group, shift_right)
-from density_tpu_torch.kernels import bigsort
+from density_tpu_torch.kernels import bigsort, bitonic
 from density_tpu_torch.kernels.packroute import signature_words
 
 Q = SPEC.quads_per_block  # 64
@@ -50,10 +52,19 @@ def sig_pack(flags_2d):
     return signature_words(flags_2d, Q, SIG_WORDS, 1).squeeze(-2)
 
 
+def _sort_mod():
+    """The planner's sort kernel: `bitonic` under
+    DENSITY_TPU_SORT=bitonic, `bigsort` otherwise. Read on every call,
+    as the JAX package reads it at trace time (`_sort_mod`)."""
+    return (bitonic if os.environ.get("DENSITY_TPU_SORT") == "bitonic"
+            else bigsort)
+
+
 def plan_fast(quads: torch.Tensor, nbytes: torch.Tensor):
     """Copy-free planner for (S, n_q) int32 quads, n_q a power of two:
-    the port of `plan_fast_pallas`. Two sorts on the bigsort kernel:
-    forward by (hash, index), back by (index << 1 | map bit).
+    the port of `plan_fast_pallas`. Two sorts on the sort kernel of
+    `_sort_mod`: forward by (hash, index), back by (index << 1 | map
+    bit).
 
     n_q <= 2**16: (hash << 16 | index) is one biased key, the quad rides
     along. Above: 2 keys, (hash, index high bits) and (index low 16 bits,
@@ -61,6 +72,7 @@ def plan_fast(quads: torch.Tensor, nbytes: torch.Tensor):
     the multiplier being even) with the quad's top bit -- pins the quad
     exactly given its hash. Returns (flags, pw, w0, w1, real, bits).
     """
+    sort = _sort_mod().sort
     S, n_q = quads.shape
     dev = quads.device
     quads = quads.to(torch.int32)
@@ -68,7 +80,7 @@ def plan_fast(quads: torch.Tensor, nbytes: torch.Tensor):
     lidx = torch.arange(n_q, dtype=torch.int32, device=dev)[None, :]
     if n_q <= (1 << 16):
         key = ((h << 16) | lidx) ^ BIAS
-        k_s, q_s = bigsort.sort(key.expand(S, n_q), quads, n_keys=1)
+        k_s, q_s = sort(key.expand(S, n_q), quads, n_keys=1)
         u_s = k_s ^ BIAS
         h_grp = (u_s >> 16) & 0xFFFF
         lidx_s = u_s & 0xFFFF
@@ -83,7 +95,7 @@ def plan_fast(quads: torch.Tensor, nbytes: torch.Tensor):
                  | (((quads >> 31) & 1) << 15))
         p = (h << seg_bits) | (lidx >> 16)
         k2 = (((lidx & 0xFFFF) << 16) | cmp16) ^ BIAS
-        p_s, k2_s = bigsort.sort(p, k2, n_keys=2)
+        p_s, k2_s = sort(p, k2, n_keys=2)
         u = k2_s ^ BIAS
         cmp_s = u & 0xFFFF
         h_grp = p_s >> seg_bits
@@ -94,7 +106,7 @@ def plan_fast(quads: torch.Tensor, nbytes: torch.Tensor):
         is_map_s = torch.where(same, cmp_s == shift_right(cmp_s, 0),
                                (h_grp == 0) & (cmp_s == 0))
     packed = (lidx_s << 1) | is_map_s.to(torch.int32)
-    (up,) = bigsort.sort(packed, n_keys=1)
+    (up,) = sort(packed, n_keys=1)
     return finish_plan(up, lidx, quads, h, nbytes)
 
 

@@ -1,7 +1,9 @@
-"""Chameleon wire-format constants (the port's own copy).
+"""Wire-format constants (the port's own copy).
 
 These pin the wire format and must match the reference bit for bit;
-they mirror the chameleon part of the JAX package's `constants.py`.
+they mirror the JAX package's `constants.py`: the block geometry of all
+three codecs (`SPECS`, which `api.safe_encode_buffer_size` reads) and
+chameleon's flags.
 
 Hash: h = (quad *u32 0x9D6EF916) >> 16, a u16.
 All multi-byte values are little-endian. Signature flags are packed
@@ -21,6 +23,7 @@ HASH_MULTIPLIER_I32 = HASH_MULTIPLIER - (1 << 32)
 CHAMELEON_FLAG_BITS = 1  # flag 0 plain, 1 map
 CHAMELEON_SIG_BYTES = 8
 CHAMELEON_BLOCK_SIZE = 256  # bytes; 64 quads/block
+CHAMELEON_DECODE_UNIT = 8  # bytes out per decode unit (2 quads)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +34,7 @@ class CodecSpec:
     flag_bits: int
     sig_bytes: int
     block_size: int
+    decode_unit: int
 
     @property
     def quads_per_block(self) -> int:
@@ -49,7 +53,13 @@ class CodecSpec:
 
 
 CHAMELEON = CodecSpec("chameleon", CHAMELEON_FLAG_BITS, CHAMELEON_SIG_BYTES,
-                      CHAMELEON_BLOCK_SIZE)
+                      CHAMELEON_BLOCK_SIZE, CHAMELEON_DECODE_UNIT)
+# the other two codecs' geometry (not ported yet beyond it)
+CHEETAH = CodecSpec("cheetah", flag_bits=2, sig_bytes=8, block_size=128,
+                    decode_unit=4)
+LION = CodecSpec("lion", flag_bits=3, sig_bytes=6, block_size=64,
+                 decode_unit=4)
+SPECS = {"chameleon": CHAMELEON, "cheetah": CHEETAH, "lion": LION}
 
 
 def hash_u16(quad: int) -> int:

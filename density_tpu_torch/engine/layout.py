@@ -12,15 +12,23 @@ path:
     `assemble_one`).
 
 Quads are (S, n_q) int32 bit patterns of the little-endian input;
-n_q is a power of two >= 16384 (`stage_quads` pads to it), so every
+n_q is a power of two >= 4096 (`stage_quads` pads to it), so every
 stream goes through the sort and pack kernels. Padding quads are zero,
 lie past nbytes // 4 and carry the largest indices, so they change no
 output word.
+
+The pack kernel is chosen as the JAX package chooses it
+(`fused_pallas_batched`): `packroute` where n_q is a multiple of 16384
+and the pack mode is "route", `pack` otherwise (4096- and 8192-quad
+streams, and every size in mode "onehot"). The mode comes from
+`DENSITY_TPU_PACK` once, at import, as in the JAX package; `PACK_MODE`
+is the module attribute that holds it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable
 
 import numpy as np
@@ -28,10 +36,11 @@ import torch
 
 from density_tpu_torch.engine.grouping import hash_quads
 from density_tpu_torch.engine.protection import replay_fsm
-from density_tpu_torch.kernels import packroute
+from density_tpu_torch.kernels import pack, packroute
 
 MAX_FIXED_POINT_ITERS = 8
-MIN_QUADS = 16384  # one routing group of the TPU pack kernel
+MIN_QUADS = pack.GQ_MIN  # one tile of the small-stream pack kernel
+PACK_MODE = os.environ.get("DENSITY_TPU_PACK", "route")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +86,13 @@ def stamp_ragged(quads, nbytes, w0, w1):
     return w0, w1
 
 
+def pack_module(n_q: int):
+    """The pack kernel's module for n_q quads per stream."""
+    if PACK_MODE == "route" and n_q % packroute.GQ == 0:
+        return packroute
+    return pack
+
+
 def fused(pipe: Pipeline, quads, nbytes):
     """Copy-free plan + pack assembly + totals + the no-copy certificate.
 
@@ -87,9 +103,9 @@ def fused(pipe: Pipeline, quads, nbytes):
     flags, pw, w0, w1, real, bits = pipe.plan_fast(quads, nbytes)
     ok = ~torch.any(bits[:, 1:] & bits[:, :-1], dim=1)
     w0, w1 = stamp_ragged(quads, nbytes, w0, w1)
-    out = packroute.pack(flags, pw, w0, w1, nbytes, q=pipe.Q,
-                         sig_words=pipe.SIG_WORDS, block=pipe.BLOCK,
-                         flag_bits=pipe.flag_bits)
+    out = pack_module(quads.shape[1]).pack(
+        flags, pw, w0, w1, nbytes, q=pipe.Q, sig_words=pipe.SIG_WORDS,
+        block=pipe.BLOCK, flag_bits=pipe.flag_bits)
     nbr = (nbytes + pipe.BLOCK - 1) // pipe.BLOCK
     totals = (2 * pw.sum(1) + nbr * 2 * pipe.SIG_WORDS
               + nbytes % 4).to(torch.int32)

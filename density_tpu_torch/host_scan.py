@@ -11,7 +11,10 @@ its signature's popcount in O(1); only the final block walks its tokens.
 
 `encode_scalar` is the chameleon scalar encoder (reference encode
 loop codec.rs:34-80 with chameleon.rs:88-100): the exact fallback for a
-stream whose fixed point has not converged.
+stream whose fixed point has not converged. `decode_scalar` is its
+decoder (the reference's block decode loop, codec.rs:82-126, with
+chameleon.rs:105-135), a copy of the JAX package's scalar oracle
+(`codecs/scalar.py`); both serve `api.py`'s "scalar" backend.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from density_tpu_torch.errors import DecodeError
 BLOCK = CHAMELEON.block_size
 SIG = CHAMELEON.sig_bytes
 Q = CHAMELEON.quads_per_block
+UNIT = CHAMELEON.decode_unit
 FULL = SIG + BLOCK  # the largest encoded block: every token plain
 
 
@@ -207,4 +211,67 @@ def encode_scalar(data: bytes) -> bytes:
         out += block[4 * full:]  # ragged tail: raw bytes, no flag bit
         out[mark:mark + SIG] = sig.to_bytes(SIG, "little")
         prot.update(len(out) - mark >= BLOCK)
+    return bytes(out)
+
+
+def _decode_quad(flag: int, data: bytes, pos: int, chunk_map: list):
+    """One token: a plain quad enters the dictionary, a map reads it.
+    Returns (quad, new_pos)."""
+    if flag == 0:
+        quad = int.from_bytes(data[pos:pos + 4], "little")
+        chunk_map[hash_u16(quad)] = quad
+        return quad, pos + 4
+    return chunk_map[int.from_bytes(data[pos:pos + 2], "little")], pos + 2
+
+
+def decode_scalar(data: bytes) -> bytes:
+    """Chameleon reference decoder, one quad at a time."""
+    out = bytearray()
+    prot = Protection()
+    chunk_map = [0] * (1 << HASH_BITS)
+    n = len(data)
+    pos = 0
+    # full blocks: every token fits before the stream end
+    while n - pos >= SIG + BLOCK:
+        if prot.revert_to_copy():
+            out += data[pos:pos + BLOCK]
+            pos += BLOCK
+            prot.decay()
+            continue
+        mark = pos
+        sig = int.from_bytes(data[pos:pos + SIG], "little")
+        pos += SIG
+        for _ in range(Q):
+            quad, pos = _decode_quad(sig & 1, data, pos, chunk_map)
+            sig >>= 1
+            out += quad.to_bytes(4, "little")
+        prot.update(pos - mark >= BLOCK)
+    # tail blocks: units of UNIT bytes, the last one quad by quad with
+    # the ragged-tail rule (codec.rs:102-123)
+    while n - pos > 0:
+        if prot.revert_to_copy():
+            if n - pos > BLOCK:
+                out += data[pos:pos + BLOCK]
+                pos += BLOCK
+            else:
+                out += data[pos:]
+                return bytes(out)
+            prot.decay()
+            continue
+        mark = pos
+        sig = int.from_bytes(data[pos:pos + SIG], "little")
+        pos += SIG
+        for _ in range(BLOCK // UNIT):
+            partial = n - pos < UNIT
+            for _ in range(UNIT // 4):
+                flag = sig & 1
+                sig >>= 1
+                if partial and flag == 0:
+                    rem = n - pos
+                    if rem <= 3:
+                        out += data[pos:]
+                        return bytes(out)
+                quad, pos = _decode_quad(flag, data, pos, chunk_map)
+                out += quad.to_bytes(4, "little")
+        prot.update(pos - mark >= BLOCK)
     return bytes(out)

@@ -22,7 +22,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-KERNELS = ("bigsort", "packroute", "unpack")
+KERNELS = ("bigsort", "packroute", "unpack", "pack", "bitonic")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

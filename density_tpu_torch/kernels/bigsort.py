@@ -22,7 +22,7 @@ from density_tpu_torch.kernels import _build
 launches = 0  # kernel launches through `sort` (see chip_smoke.py)
 
 
-def _check_args(arrays, n_keys):
+def check_args(arrays, n_keys):
     if not 1 <= len(arrays) <= 3 or n_keys not in (1, 2) or n_keys > len(
             arrays):
         raise ValueError(f"{len(arrays)} arrays with n_keys={n_keys}")
@@ -37,7 +37,7 @@ def _check_args(arrays, n_keys):
 def sort(*arrays: torch.Tensor, n_keys: int = 1):
     """Returns the sorted copies of `arrays` as a tuple of (S, N) int32."""
     global launches
-    _check_args(arrays, n_keys)
+    check_args(arrays, n_keys)
     if arrays[0].device.type != "cuda":
         return sort_plain(*arrays, n_keys=n_keys)
     # the kernel sorts in place: fresh contiguous copies
@@ -61,7 +61,7 @@ def _lex_less(a1, a2, b1, b2):
 def sort_plain(*arrays: torch.Tensor, n_keys: int = 1):
     """The kernel's bitonic network in plain PyTorch: stage k, distance
     j, partner i ^ j, ascending where (i & k) == 0."""
-    _check_args(arrays, n_keys)
+    check_args(arrays, n_keys)
     S, N = arrays[0].shape
     arrs = [a.to(torch.int32) for a in arrays]
     k = 2

@@ -47,7 +47,7 @@ def signature_words(flags: torch.Tensor, q: int, sig_words: int,
     return ((sig[..., None] >> wsh) & 0xFFFF).to(torch.int32)
 
 
-def _check_args(flags, pw, w0, w1, nbytes, q):
+def check_args(flags, pw, w0, w1, nbytes, q):
     S, N = flags.shape
     if N % q:
         raise ValueError(f"N={N} is not a multiple of q={q}")
@@ -61,7 +61,7 @@ def _check_args(flags, pw, w0, w1, nbytes, q):
 def pack(flags, pw, w0, w1, nbytes, *, q, sig_words, block, flag_bits):
     """Assemble S block streams; see the module docstring."""
     global launches
-    _check_args(flags, pw, w0, w1, nbytes, q)
+    check_args(flags, pw, w0, w1, nbytes, q)
     if flags.device.type != "cuda":
         return pack_plain(flags, pw, w0, w1, nbytes, q=q,
                           sig_words=sig_words, block=block,
@@ -86,7 +86,7 @@ def pack(flags, pw, w0, w1, nbytes, *, q, sig_words, block, flag_bits):
 def pack_plain(flags, pw, w0, w1, nbytes, *, q, sig_words, block,
                flag_bits):
     """The kernel's arithmetic in plain PyTorch (scatters by index)."""
-    _check_args(flags, pw, w0, w1, nbytes, q)
+    check_args(flags, pw, w0, w1, nbytes, q)
     S, N = flags.shape
     dev = flags.device
     nb = N // q

@@ -26,7 +26,7 @@ from density_tpu_torch.kernels import bigsort, packroute, unpack
 from tests.test_golden import GOLDEN, TEST_DATA
 
 REPO = Path(__file__).resolve().parent.parent
-STREAM = 65536  # 16384 quads: the port's smallest device shape
+STREAM = 65536  # 16384 quads: the smallest shape that takes packroute
 
 # The test workers share the machine's cores with each other and with
 # XLA; torch's own thread pool on top of them only oversubscribes it.

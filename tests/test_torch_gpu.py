@@ -16,7 +16,7 @@ import torch
 
 from density_tpu_torch import container
 from density_tpu_torch.errors import DecodeError
-from density_tpu_torch.kernels import bigsort, packroute, unpack
+from density_tpu_torch.kernels import bigsort, bitonic, pack, packroute, unpack
 
 pytestmark = pytest.mark.gpu
 
@@ -73,6 +73,56 @@ def test_pack_matches_plain(cuda, tail):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("S,N,n_keys,n_arr", [
+    (3, 256, 1, 1), (5, 4096, 1, 2), (3, 8192, 1, 3), (4, 16384, 2, 3),
+    (2, 65536, 1, 2), (2, 1 << 17, 2, 2)])
+def test_bitonic_matches_plain_and_bigsort(cuda, S, N, n_keys, n_arr):
+    """Rows that fit in shared memory and rows that do not (N >= 32768
+    with 2 arrays); the output also equals bigsort's."""
+    rng = np.random.default_rng(N + 7 * n_arr)
+    arrs = [torch.from_numpy(rng.integers(-50, 50, (S, N)).astype(np.int32))
+            for _ in range(n_keys)]
+    arrs += [torch.from_numpy(rng.integers(-2**31, 2**31, (S, N),
+                                           dtype=np.int64).astype(np.int32))
+             for _ in range(n_arr - n_keys)]
+    got = bitonic.sort(*(a.to(cuda) for a in arrs), n_keys=n_keys)
+    torch.cuda.synchronize()
+    want = bitonic.sort_plain(*arrs, n_keys=n_keys)
+    big = bigsort.sort(*(a.to(cuda) for a in arrs), n_keys=n_keys)
+    for g, w, b in zip(got, want, big):
+        assert torch.equal(g.cpu(), w)
+        assert torch.equal(g, b)
+
+
+def _geometry_tokens(rng, S, N, q, flag_bits, nbytes):
+    """Seeded flags with their payload words (zero past nbytes // 4) and
+    random w0/w1, as a cheetah (2-bit) or lion (3-bit) plan has them."""
+    real = np.arange(N)[None, :] < (nbytes[:, None] // 4)
+    flags = np.where(real, rng.integers(0, 1 << flag_bits, (S, N)), 0)
+    pw = unpack.flag_payload_words(torch.from_numpy(flags), flag_bits).numpy()
+    pw = np.where(real, pw, 0)
+    w0, w1 = (rng.integers(0, 1 << 16, (S, N)) for _ in range(2))
+    return [torch.from_numpy(x.astype(np.int32)) for x in (flags, pw, w0, w1)]
+
+
+@pytest.mark.parametrize("N,q,sig_words,flag_bits", [
+    (4096, 64, 4, 1), (8192, 64, 4, 1), (65536, 64, 4, 1),
+    (8192, 32, 4, 2), (4096, 16, 3, 3)])
+def test_small_stream_pack_matches_plain(cuda, N, q, sig_words, flag_bits):
+    """Tails of 0, 1, 3 and 555 bytes, a stream shorter than one tile
+    and an empty one."""
+    rng = np.random.default_rng(N + q)
+    full = 4 * N
+    nbytes = np.array([full, full - 1, full - 3, full - 555, 1000, 0],
+                      np.int32)
+    tokens = _geometry_tokens(rng, len(nbytes), N, q, flag_bits, nbytes)
+    kw = dict(q=q, sig_words=sig_words, block=4 * q, flag_bits=flag_bits)
+    tn = torch.from_numpy(nbytes)
+    got = pack.pack(*(x.to(cuda) for x in tokens), tn.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), pack.pack_plain(*tokens, tn, **kw))
+
+
 def test_unpack_matches_plain_and_rejects_bad_offsets(cuda):
     from density_tpu_torch.parallel import sharding
     blob = container.compress(_data(5, 3 * 65536 + 7), "chameleon", 65536,
@@ -94,10 +144,62 @@ def test_unpack_matches_plain_and_rejects_bad_offsets(cuda):
         unpack.unpack(words.to(cuda), bad.to(cuda), is_copy.to(cuda), **CHAM)
 
 
-@pytest.mark.parametrize("n", [125, 65536 + 40001, 3 * 65536 + 2])
-def test_container_on_card_equals_cpu(cuda, n):
+def test_unpack_at_4096_quads(cuda):
+    """NB * 64 = 4096, the smallest decode capacity: the kernel has no
+    16384-quad grouping and serves it as it is."""
+    from density_tpu_torch.parallel import sharding
+    blob = container.compress(_data(9, 3 * 16384 + 1598), "chameleon", 16384,
+                              device="cpu")
+    (words, woff, is_copy, nb_real, _), _, _ = sharding.decode_prep(
+        blob, device="cpu")
+    assert woff.shape[1] * 64 == 4096
+    live = torch.arange(woff.shape[1])[None, :] < nb_real[:, None]
+    woff = torch.where(live, woff, -1)
+    got = unpack.unpack(words.to(cuda), woff.to(cuda), is_copy.to(cuda),
+                        **CHAM)
+    torch.cuda.synchronize()
+    for g, w in zip(got, unpack.unpack_plain(words, woff, is_copy, **CHAM)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n,stream", [
+    (125, 65536), (65536 + 40001, 65536), (3 * 65536 + 2, 65536),
+    (5 * 16384 + 1598, 16384), (3 * 32768 + 1598, 32768)])
+def test_container_on_card_equals_cpu(cuda, n, stream):
     data = _data(n, n)
-    blob = container.compress(data, "chameleon", 65536, device=cuda)
-    assert blob == container.compress(data, "chameleon", 65536,
+    before = pack.launches
+    blob = container.compress(data, "chameleon", stream, device=cuda)
+    assert blob == container.compress(data, "chameleon", stream,
                                       device="cpu")
     assert container.decompress(blob, device=cuda) == data
+    if stream < 65536:
+        assert pack.launches > before
+
+
+def test_options_on_card_give_default_containers(cuda, monkeypatch):
+    """DENSITY_TPU_SORT=bitonic and pack mode "onehot" change the kernels,
+    not the bytes."""
+    from density_tpu_torch.engine import layout
+    data = _data(11, 2 * 65536 + 3 * 32768 + 77)
+    want = {st: container.compress(data, "chameleon", st, device=cuda)
+            for st in (65536, 32768)}
+    monkeypatch.setenv("DENSITY_TPU_SORT", "bitonic")
+    before = bitonic.launches
+    for st, blob in want.items():
+        assert container.compress(data, "chameleon", st, device=cuda) == blob
+    assert bitonic.launches > before
+    monkeypatch.delenv("DENSITY_TPU_SORT")
+    monkeypatch.setattr(layout, "PACK_MODE", "onehot")
+    before = (pack.launches, packroute.launches)
+    assert container.compress(data, "chameleon", 65536, device=cuda) == (
+        want[65536])
+    assert pack.launches > before[0] and packroute.launches == before[1]
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 1000, 16384, 32771])
+def test_encode_raw_on_card(cuda, n):
+    from density_tpu_torch import api
+    data = _data(n + 1, n)
+    enc = api.encode_raw(data, device=cuda)
+    assert enc == api.encode_raw(data, backend="scalar")
+    assert api.decode_raw(enc, device=cuda) == data
