@@ -7,8 +7,9 @@ Needs one CUDA card and `nvcc`; imports no JAX. Phases:
   (a) build the five CUDA kernels from `density_tpu_torch/csrc/`;
   (b) hold each kernel against its plain PyTorch version on the card,
       bit for bit, at the shapes of the paths below (and a
-      malformed-offset case that must raise DecodeError); bitonic must
-      also equal bigsort;
+      malformed-offset case that must raise DecodeError); bigsort also
+      on tie-heavy keys at rows of 2^15-2^17, whose merges take global
+      launches of 1-4 bits; bitonic must also equal bigsort;
   (c) the main path: chameleon compress and decompress on the card of a
       10,192,446-byte text corpus in 256 KiB streams, with every
       kernel's launch count read around it; stream bytes held against
@@ -20,7 +21,9 @@ Needs one CUDA card and `nvcc`; imports no JAX. Phases:
   (f) timings: device-resident encode and decode with CUDA events, at
       256 KiB, 32 KiB and 16 KiB streams; the device time of each
       kernel, its plain version and the library call beside it, from
-      torch.profiler; one profiler trace each of encode and decode at
+      torch.profiler (bigsort at every shape the paths sort, with the
+      kernel launches per sort that the trace counts); one profiler
+      trace each of encode and decode at
       256 KiB and 32 KiB; the encode with the default sort and under
       DENSITY_TPU_SORT=bitonic, in turns;
   (g) small streams: the corpus in 32 KiB and 16 KiB streams (4096- and
@@ -137,24 +140,39 @@ def timed_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10) -> float:
-    """Mean device time per call: the card's own events (kernels, copies,
-    memsets) under torch.profiler, summed, so that the host's launch
-    gaps, which vary from machine to machine, are left out."""
+def device_profile(fn, iters: int = 10) -> tuple[float, float]:
+    """Mean device time per call and kernel launches per call: the card's
+    own events (kernels, copies, memsets) under torch.profiler, their
+    times summed, so that the host's launch gaps, which vary from machine
+    to machine, are left out; the launches count the kernels alone."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type != DeviceType.CPU)
-    if us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return us / 1e3 / iters
+    # the profiler now and then records no device event at all in a
+    # session (seen on the H100 after many sessions): profile again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU]
+        us = sum(e.self_device_time_total for e in events)
+        if us > 0:
+            break
+        log("(f) the profiler saw no device time; profiling again")
+    else:
+        raise AssertionError("the profiler saw no device time in 3 tries")
+    kernels = sum(e.count for e in events
+                  if not e.key.startswith(("Memcpy", "Memset")))
+    return us / 1e3 / iters, kernels / iters
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Mean device time per call (see `device_profile`)."""
+    return device_profile(fn, iters)[0]
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -190,6 +208,16 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {k: m.launches for k, m in kernel_modules().items()}
+
+
+def sort_inputs(rng, dev, S: int, N: int, n_arrays: int, n_keys: int,
+                ties: bool):
+    """Seeded sort operands: keys in -50..49 (many ties) or over all of
+    int32, the carried arrays over all of int32."""
+    import torch
+    hi = [50 if ties else 2**31] * n_keys + [2**31] * (n_arrays - n_keys)
+    return tuple(torch.from_numpy(rng.integers(
+        -h, h, (S, N), dtype=np.int64).astype(np.int32)).to(dev) for h in hi)
 
 
 def geometry_tokens(rng, S: int, N: int, q: int, flag_bits: int, nbytes):
@@ -252,7 +280,6 @@ def path_inputs(dev, data: bytes, stream: int = STREAM):
 def phase_parity(dev, data: bytes, rnd: bytes):
     """Each kernel against its plain version, on the card, bit-exact."""
     import torch
-    from density_tpu_torch.engine import grouping
     from density_tpu_torch.errors import DecodeError
     from density_tpu_torch.kernels import bigsort, packroute, unpack
     from density_tpu_torch.parallel import sharding
@@ -261,17 +288,20 @@ def phase_parity(dev, data: bytes, rnd: bytes):
     inputs = path_inputs(dev, data)
     quads, nbytes, pack_in, dargs, _ = inputs
     S, N = quads.shape
-    # sort: the encode's forward sort (biased hash|index key + quad), a
-    # 2-key 2^17 sort, a 3-array sort and a small 1-array sort
-    key = ((grouping.hash_quads(quads) << 16)
-           | torch.arange(N, dtype=torch.int32, device=dev)) ^ (-2**31)
-    cases = [((key, quads), 1)]
-    for shape, na, nk in [((2, 1 << 17), 2, 2), ((4, 16384), 3, 2),
-                          ((3, 256), 1, 1)]:
-        arrs = tuple(torch.from_numpy(rng.integers(
-            -2**31, 2**31, shape, dtype=np.int64).astype(np.int32)).to(dev)
-            for _ in range(na))
-        cases.append((arrs, nk))
+    # sort: the encode's forward sort (biased hash|index key + quad);
+    # tie-heavy keys, where only the same network puts the carried arrays
+    # in the same order, at the paths' shapes and at rows of 2^15-2^17
+    # (merges with global launches of 2-3, 2-4 and 1-4 bits) at small and
+    # large S; random keys
+    cases = [((main_key(dev, quads), quads), 1)]
+    for (s, n), na, nk, ties in [
+            ((S, N), 2, 1, True), ((S, N), 1, 1, True),
+            ((311, 8192), 2, 1, True), ((622, 4096), 3, 2, True),
+            ((1, 1 << 15), 2, 2, True), ((150, 1 << 15), 3, 1, True),
+            ((2, 1 << 17), 3, 2, True), ((64, 1 << 17), 2, 1, True),
+            ((2, 1 << 17), 2, 2, False), ((4, 16384), 3, 2, False),
+            ((3, 256), 1, 1, False)]:
+        cases.append((sort_inputs(rng, dev, s, n, na, nk, ties), nk))
     err = 0
     for arrs, nk in cases:
         got = bigsort.sort(*arrs, n_keys=nk)
@@ -282,7 +312,8 @@ def phase_parity(dev, data: bytes, rnd: bytes):
         if not torch.equal(got[0], ref):
             raise AssertionError("bigsort keys are not sorted")
     errs["bigsort"] = err
-    log(f"(b) bigsort: {len(cases)} cases, max_abs_err {err}")
+    log(f"(b) bigsort: {len(cases)} cases (N 256-131072, S 1-622, 1-3 "
+        f"arrays, 1-2 keys, tie-heavy keys in -50..49), max_abs_err {err}")
 
     kw = dict(q=64, sig_words=4, block=256, flag_bits=1)
     got = packroute.pack(*pack_in, **kw)
@@ -339,7 +370,6 @@ def parity_small(dev, inputs, small):
     """The pack and bitonic kernels against their plain versions (and
     bitonic against bigsort) on the card, bit-exact."""
     import torch
-    from density_tpu_torch.engine import grouping
     from density_tpu_torch.kernels import bigsort, bitonic, pack
     errs = {}
     rng = np.random.default_rng(4)
@@ -365,12 +395,8 @@ def parity_small(dev, inputs, small):
     errs["pack"] = err
 
     # bitonic: the planners' forward sorts, then random keys with ties
-    sorts = []
-    for quads in (small[SMALL_STREAMS[1]][0], inputs[0]):
-        S, N = quads.shape
-        key = ((grouping.hash_quads(quads) << 16)
-               | torch.arange(N, dtype=torch.int32, device=dev)) ^ (-2**31)
-        sorts.append(((key, quads), 1))
+    sorts = [((main_key(dev, quads), quads), 1)
+             for quads in (small[SMALL_STREAMS[1]][0], inputs[0])]
     for (S, N), na, nk in [((16, 4096), 3, 2), ((8, 16384), 3, 2),
                            ((4, 16384), 1, 1), ((4, 65536), 3, 2),
                            ((2, 1 << 17), 2, 2), ((2, 1 << 17), 1, 1)]:
@@ -574,7 +600,6 @@ def time_paths(name: str, quads, nbytes, dargs):
 def phase_small_timing(dev, inputs, small):
     """Small-stream encode/decode throughput; the pack and bitonic rows."""
     import torch
-    from density_tpu_torch.engine import grouping
     from density_tpu_torch.kernels import bitonic, pack
     from density_tpu_torch.parallel import sharding
     encs = {}
@@ -600,8 +625,7 @@ def phase_small_timing(dev, inputs, small):
     # first (its row), then the 32 KiB path's, which fits in shared memory
     for i, quads in enumerate((inputs[0], small[SMALL_STREAMS[0]][0])):
         S, N = quads.shape
-        key = ((grouping.hash_quads(quads) << 16)
-               | torch.arange(N, dtype=torch.int32, device=dev)) ^ (-2**31)
+        key = main_key(dev, quads)
         r = dict(
             ms=device_ms(lambda: bitonic.sort(key, quads, n_keys=1)),
             plain_ms=device_ms(
@@ -650,30 +674,22 @@ def time_sort_option(inputs, small) -> None:
 
 
 def log_row(name: str, r: dict) -> None:
-    lib = f"{r['library_ms']:.4f}" if r["library_ms"] is not None else "n/a"
+    lib, plain = (f"{r[k]:.4f}" if r[k] is not None else "n/a"
+                  for k in ("library_ms", "plain_ms"))
     log(f"(f) {name} [{r['shape']}]: device {r['ms']:.4f} ms, plain "
-        f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
+        f"{plain} ms, library {lib} ms, bound "
         f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
 
 
-def phase_timing(dev, inputs, data: bytes):
+def phase_timing(dev, inputs, small):
     import torch
-    from density_tpu_torch.engine import grouping
-    from density_tpu_torch.kernels import bigsort, packroute, unpack
+    from density_tpu_torch.kernels import packroute, unpack
     from density_tpu_torch.parallel import sharding
     quads, nbytes, pack_in, dargs, live_bytes = inputs
     S, N = quads.shape
     enc = time_paths("256 KiB", quads, nbytes, dargs)
 
-    rows = {}
-    key = ((grouping.hash_quads(quads) << 16)
-           | torch.arange(N, dtype=torch.int32, device=dev)) ^ (-2**31)
-    rows["bigsort"] = dict(
-        ms=device_ms(lambda: bigsort.sort(key, quads, n_keys=1)),
-        plain_ms=device_ms(
-            lambda: bigsort.sort_plain(key, quads, n_keys=1), iters=2),
-        library_ms=device_ms(lambda: torch.sort(key, dim=1)),
-        bound=sort_bound(S, N, 2), shape=f"S={S} N={N} 1 key 2 arrays")
+    rows = {"bigsort": time_bigsort(dev, inputs, small)}
     rows["packroute"] = dict(
         ms=device_ms(lambda: packroute.pack(*pack_in, **CHAM)),
         plain_ms=device_ms(
@@ -695,11 +711,48 @@ def phase_timing(dev, inputs, data: bytes):
         bound=bound_ms(2 * live_bytes + S * NB * 5 + 3 * S * NB * 64 * 4,
                        0),
         shape=f"S={S} W={W} NB={NB}")
-    for name, r in rows.items():
-        log_row(name, r)
+    for name in ("packroute", "unpack"):
+        log_row(name, rows[name])
     phase_profile({"encode": enc,
                    "decode": lambda: sharding.decode_batch(*dargs)})
     return rows
+
+
+def time_bigsort(dev, inputs, small) -> dict:
+    """bigsort at each shape the paths launch it, `torch.sort` beside it:
+    the forward sort of the encode and the two decode sorts (1 key, 2
+    arrays) and the encode's unsort (1 array), on the main path's keys
+    and on the 32 KiB and 16 KiB paths'. Returns the main shape's row."""
+    import torch
+    from density_tpu_torch.kernels import bigsort
+    main = None
+    for quads in (inputs[0], small[SMALL_STREAMS[0]][0],
+                  small[SMALL_STREAMS[1]][0]):
+        S, N = quads.shape
+        key = main_key(dev, quads)
+        for arrs in ((key, quads), (key,)):
+            ms, n = device_profile(lambda: bigsort.sort(*arrs, n_keys=1))
+            r = dict(
+                ms=ms,
+                # the plain version on the main shape only (9 ms a call)
+                plain_ms=None if main else device_ms(
+                    lambda: bigsort.sort_plain(*arrs, n_keys=1), iters=2),
+                library_ms=device_ms(lambda: torch.sort(key, dim=1)),
+                bound=sort_bound(S, N, len(arrs)),
+                shape=f"S={S} N={N} 1 key {len(arrs)} array(s); {n:g} "
+                      "kernel launches per sort in the trace")
+            main = main or r
+            log_row("bigsort", r)
+    return main
+
+
+def main_key(dev, quads):
+    """The encode's forward-sort key: biased (hash << 16 | index)."""
+    import torch
+    from density_tpu_torch.engine import grouping
+    N = quads.shape[1]
+    return ((grouping.hash_quads(quads) << 16)
+            | torch.arange(N, dtype=torch.int32, device=dev)) ^ (-2**31)
 
 
 def phase_profile(fns) -> None:
@@ -780,7 +833,7 @@ def main() -> int:
         f"DENSITY_TPU_SORT=bitonic (h): {counts}")
     if min(counts.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {counts}")
-    rows = phase_timing(dev, inputs, data)
+    rows = phase_timing(dev, inputs, small)
     rows.update(phase_small_timing(dev, inputs, small))
     kernels = [dict(name=name, route="cuda",
                     source=f"density_tpu_torch/csrc/{name}.cu",

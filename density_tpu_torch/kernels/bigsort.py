@@ -7,10 +7,15 @@ the rest; 1-3 arrays, N a power of two. Callers bias unsigned keys by
 unique.
 
 On a CUDA tensor the sort runs the hand-written kernel
-(`csrc/bigsort.cu`); on a CPU tensor it runs `sort_plain`, the same
-bitonic network in plain PyTorch. Both execute the TPU kernel's
-compare-exchange network pass for pass, so all three agree exactly,
-ties included.
+(`csrc/bigsort.cu`): a tile kernel runs every pass of distance below the
+tile T (the whole row up to 16384 elements, else 8192) on chip, and each
+merge stage above the tile is one global launch plus one tile launch, so
+a sort of N > T takes 1 + 2 log2(N / T) launches: 7 at N = 65536. The
+first launch reads the caller's arrays (contiguous int32, as the paths
+pass them) and writes fresh outputs, so nothing is copied first. On a
+CPU tensor it runs `sort_plain`, the same bitonic network in plain
+PyTorch. Both execute the TPU kernel's compare-exchange network pass for
+pass, so all three agree exactly, ties included.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 
 from density_tpu_torch.kernels import _build
 
-launches = 0  # kernel launches through `sort` (see chip_smoke.py)
+launches = 0  # calls of `sort` that launched the kernel (see chip_smoke.py)
 
 
 def check_args(arrays, n_keys):
@@ -38,15 +43,21 @@ def sort(*arrays: torch.Tensor, n_keys: int = 1):
     """Returns the sorted copies of `arrays` as a tuple of (S, N) int32."""
     global launches
     check_args(arrays, n_keys)
+    S, N = arrays[0].shape
     if arrays[0].device.type != "cuda":
         return sort_plain(*arrays, n_keys=n_keys)
-    # the kernel sorts in place: fresh contiguous copies
-    outs = [a.to(torch.int32).clone(memory_format=torch.contiguous_format)
-            for a in arrays]
-    S, N = outs[0].shape
-    fn = _build.function("bigsort", "bigsort_sort", 8, (3, 4, 5, 6))
-    p = [_build.ptr(o) for o in outs] + [_build.ptr(None)] * (3 - len(outs))
-    rc = fn(*p, len(outs), n_keys, S, N, _build.stream_ptr(outs[0].device))
+    # the kernel reads contiguous rows in 16-byte vectors: int32 arrays in
+    # that layout (those of the paths) go in as they are, others are copied
+    srcs = [a.to(torch.int32) for a in arrays]
+    srcs = [a if a.is_contiguous() and a.data_ptr() % 16 == 0
+            else a.clone(memory_format=torch.contiguous_format) for a in srcs]
+    outs = [torch.empty((S, N), dtype=torch.int32, device=a.device)
+            for a in srcs]
+    pad = [None] * (3 - len(srcs))
+    fn = _build.function("bigsort", "bigsort_sort", 11, range(6, 10))
+    rc = fn(*[_build.ptr(a) for a in srcs], *pad,
+            *[_build.ptr(o) for o in outs], *pad,
+            len(srcs), n_keys, S, N, _build.stream_ptr(srcs[0].device))
     _build.check(rc, "bigsort")
     launches += 1
     return tuple(outs)

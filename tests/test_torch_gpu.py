@@ -39,19 +39,97 @@ def _data(seed, n):
                     for i in range(0, n, 10000))[:n]
 
 
-@pytest.mark.parametrize("S,N,n_keys,n_arr", [
-    (3, 256, 1, 1), (38, 65536, 1, 2), (2, 1 << 17, 2, 2),
-    (4, 16384, 2, 3), (2, 8192, 1, 3)])
-def test_bigsort_matches_plain(cuda, S, N, n_keys, n_arr):
-    rng = np.random.default_rng(N + n_arr)
-    arrs = [torch.from_numpy(rng.integers(-2**31, 2**31, (S, N),
-                                          dtype=np.int64).astype(np.int32))
-            for _ in range(n_arr)]
+def _sort_inputs(rng, S, N, n_keys, n_arr, ties):
+    """Keys in -50..49 (many ties) or over all of int32; the carried
+    arrays over all of int32."""
+    hi = [50 if ties else 2**31] * n_keys + [2**31] * (n_arr - n_keys)
+    return [torch.from_numpy(rng.integers(-h, h, (S, N), dtype=np.int64)
+                             .astype(np.int32)) for h in hi]
+
+
+def _check_bigsort(cuda, arrs, n_keys):
     got = bigsort.sort(*(a.to(cuda) for a in arrs), n_keys=n_keys)
     torch.cuda.synchronize()
-    want = bigsort.sort_plain(*arrs, n_keys=n_keys)
+    # the plain version on the card: the same arithmetic, faster than the
+    # CPU at these sizes
+    want = bigsort.sort_plain(*(a.to(cuda) for a in arrs), n_keys=n_keys)
+    assert len(got) == len(arrs)
     for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
+        assert torch.equal(g, w)
+
+
+# (n_arrays, n_keys): every combination the kernel takes
+SORT_KINDS = [(1, 1), (2, 1), (3, 1), (2, 2), (3, 2)]
+# N across the schedule's boundaries: one tile with idle lanes (N = 256),
+# one tile of up to 16384 elements, and tiles below a row with 2-4 merge
+# stages; S rotates over 1, 311 and 622 rows (fewer where a case would
+# pass 2^25 elements)
+BIGSORT_CASES = [
+    (min((1, 311, 622)[i % 3], (1 << 25) // N), N, nk, na)
+    for i, (N, (na, nk)) in enumerate(
+        (N, kind) for N in (256, 512, 1024, 4096, 8192, 16384, 32768, 65536,
+                            1 << 17) for kind in SORT_KINDS)]
+
+
+@pytest.mark.parametrize("S,N,n_keys,n_arr", BIGSORT_CASES)
+def test_bigsort_matches_plain(cuda, S, N, n_keys, n_arr):
+    rng = np.random.default_rng(N + n_arr)
+    _check_bigsort(cuda, _sort_inputs(rng, S, N, n_keys, n_arr, False),
+                   n_keys)
+
+
+@pytest.mark.parametrize("S,N,n_keys,n_arr", [
+    (311, 8192, 1, 2), (622, 4096, 2, 3), (38, 65536, 1, 2), (38, 65536, 1, 1),
+    (5, 65536, 2, 3), (1, 1 << 15, 2, 2), (150, 1 << 15, 1, 3),
+    (2, 1 << 17, 2, 3), (64, 1 << 17, 1, 2), (7, 2048, 1, 2), (9, 1024, 2, 2)])
+def test_bigsort_ties_follow_the_network(cuda, S, N, n_keys, n_arr):
+    """Keys with many ties: the carried arrays come out in the plain
+    network's order only if every pair is compared in the same order.
+    Rows of 2^15, 2^16 and 2^17 merge through global launches of 2-3,
+    2-4 and 1-4 bits (the 5-bit stage of 2^17 takes two)."""
+    rng = np.random.default_rng(S + N + n_arr)
+    _check_bigsort(cuda, _sort_inputs(rng, S, N, n_keys, n_arr, True),
+                   n_keys)
+
+
+def test_bigsort_takes_any_layout(cuda):
+    """A broadcast row, rows cut from wider ones, a non-contiguous column
+    view and a contiguous view off the 16-byte alignment of the kernel's
+    loads all sort as their contiguous copies."""
+    rng = np.random.default_rng(3)
+    S, N = 38, 65536
+    wide = [a.to(cuda) for a in _sort_inputs(rng, S, 2 * N, 1, 3, True)]
+    shifted = wide[2].view(-1)[1:1 + S * N].view(S, N)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    for arrs in ([wide[0][:1, :N].expand(S, N), wide[1][:, N:],
+                  wide[2][:, ::2]], [wide[1][:, :N], shifted]):
+        _check_bigsort(cuda, arrs, 1)
+        got = bigsort.sort(*arrs, n_keys=1)
+        want = bigsort.sort(*(a.contiguous() for a in arrs), n_keys=1)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("S,N,n_arr,want", [
+    (311, 8192, 2, 1), (622, 4096, 1, 1), (3, 16384, 3, 1), (38, 65536, 2, 7),
+    (38, 65536, 1, 7), (2, 1 << 17, 3, 10)])
+def test_bigsort_launches_per_sort(cuda, S, N, n_arr, want):
+    """The kernel launches of three sorts, counted by the profiler: one a
+    sort while a row fits in a tile of 16384; above, the sort of its
+    8192-element tiles, then for each merge stage a launch per 4 bits it
+    spans above its 4096-element tiles and a tile launch."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(N + n_arr)
+    arrs = [a.to(cuda) for a in _sort_inputs(rng, S, N, 1, n_arr, True)]
+    bigsort.sort(*arrs, n_keys=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            bigsort.sort(*arrs, n_keys=1)
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if "tile_kernel" in e.key or "global_kernel" in e.key)
+    assert n == 3 * want
 
 
 @pytest.mark.parametrize("tail", [0, 1, 3, 555])
