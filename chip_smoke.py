@@ -9,7 +9,8 @@ Needs one CUDA card and `nvcc`; imports no JAX. Phases:
       bit for bit, at the shapes of the paths below (and a
       malformed-offset case that must raise DecodeError); bigsort also
       on tie-heavy keys at rows of 2^15-2^17, whose merges take global
-      launches of 1-4 bits; bitonic must also equal bigsort;
+      launches of 1-4 bits; bitonic also at rows of one CTA, one
+      cluster and longer (2^12-2^18, tie-heavy), and equal to bigsort;
   (c) the main path: chameleon compress and decompress on the card of a
       10,192,446-byte text corpus in 256 KiB streams, with every
       kernel's launch count read around it; stream bytes held against
@@ -21,11 +22,12 @@ Needs one CUDA card and `nvcc`; imports no JAX. Phases:
   (f) timings: device-resident encode and decode with CUDA events, at
       256 KiB, 32 KiB and 16 KiB streams; the device time of each
       kernel, its plain version and the library call beside it, from
-      torch.profiler (bigsort at every shape the paths sort, with the
-      kernel launches per sort that the trace counts); one profiler
-      trace each of encode and decode at
-      256 KiB and 32 KiB; the encode with the default sort and under
-      DENSITY_TPU_SORT=bitonic, in turns;
+      torch.profiler (bigsort and bitonic at every shape the paths sort,
+      with the kernel launches per sort that the trace counts; bitonic
+      with bigsort's time beside it and the clusters the card holds at
+      once, and on one 32 MiB stream); one profiler trace each of
+      encode and decode at 256 KiB and 32 KiB; the encode with the
+      default sort and under DENSITY_TPU_SORT=bitonic, in turns;
   (g) small streams: the corpus in 32 KiB and 16 KiB streams (4096- and
       8192-quad shapes, the pack kernel), compress and decompress on the
       card with launch counts, three streams of each held against the
@@ -394,12 +396,15 @@ def parity_small(dev, inputs, small):
         err = max(err, e)
     errs["pack"] = err
 
-    # bitonic: the planners' forward sorts, then random keys with ties
+    # bitonic: the planners' forward sorts, then random keys with ties:
+    # rows of one CTA, of one cluster of 4 or 8 CTAs, and longer rows
+    # (cluster spans merged by global launches)
     sorts = [((main_key(dev, quads), quads), 1)
              for quads in (small[SMALL_STREAMS[1]][0], inputs[0])]
     for (S, N), na, nk in [((16, 4096), 3, 2), ((8, 16384), 3, 2),
-                           ((4, 16384), 1, 1), ((4, 65536), 3, 2),
-                           ((2, 1 << 17), 2, 2), ((2, 1 << 17), 1, 1)]:
+                           ((4, 16384), 1, 1), ((40, 32768), 2, 1),
+                           ((4, 65536), 3, 2), ((2, 1 << 17), 2, 2),
+                           ((2, 1 << 17), 1, 1), ((2, 1 << 18), 3, 2)]:
         arrs = [torch.from_numpy(rng.integers(-60, 60, (S, N)).astype(
             np.int32)).to(dev) for _ in range(nk)]
         arrs += [torch.from_numpy(rng.integers(
@@ -414,8 +419,9 @@ def parity_small(dev, inputs, small):
         if max_abs_err(got, bigsort.sort(*arrs, n_keys=nk)):
             raise AssertionError("bitonic differs from bigsort")
     errs["bitonic"] = err
-    log(f"(b) bitonic: {len(sorts)} cases (N 4096-131072, 1-2 keys, 1-3 "
-        f"arrays), max_abs_err {err}, equal to bigsort")
+    log(f"(b) bitonic: {len(sorts)} cases (N 4096-262144, 1-2 keys, 1-3 "
+        f"arrays, tie-heavy keys in -60..59), max_abs_err {err}, equal to "
+        "bigsort")
     return errs
 
 
@@ -599,8 +605,7 @@ def time_paths(name: str, quads, nbytes, dargs):
 
 def phase_small_timing(dev, inputs, small):
     """Small-stream encode/decode throughput; the pack and bitonic rows."""
-    import torch
-    from density_tpu_torch.kernels import bitonic, pack
+    from density_tpu_torch.kernels import pack
     from density_tpu_torch.parallel import sharding
     encs = {}
     for stream in SMALL_STREAMS:
@@ -621,27 +626,56 @@ def phase_small_timing(dev, inputs, small):
         log_row("pack", r)
         if i == 0:
             rows["pack"] = r
-    # the planner's forward sort: the main path's shape under the option
-    # first (its row), then the 32 KiB path's, which fits in shared memory
-    for i, quads in enumerate((inputs[0], small[SMALL_STREAMS[0]][0])):
-        S, N = quads.shape
-        key = main_key(dev, quads)
-        r = dict(
-            ms=device_ms(lambda: bitonic.sort(key, quads, n_keys=1)),
-            plain_ms=device_ms(
-                lambda: bitonic.sort_plain(key, quads, n_keys=1), iters=2),
-            library_ms=device_ms(lambda: torch.sort(key, dim=1)),
-            bound=sort_bound(S, N, 2),
-            shape=f"S={S} N={N} 1 key 2 arrays; 1 launch per sort, 2 sorts "
-                  "per encode call")
-        log_row("bitonic", r)
-        if i == 0:
-            rows["bitonic"] = r
+    rows["bitonic"] = time_bitonic(dev, inputs, small)
     st = SMALL_STREAMS[0]
     phase_profile({"small_encode": encs[st], "small_decode":
                    lambda: sharding.decode_batch(*small[st][3])})
     time_sort_option(inputs, small)
     return rows
+
+
+def time_bitonic(dev, inputs, small) -> dict:
+    """bitonic at each shape the planner sorts under the option (its
+    forward sort, 1 key and 2 arrays, and its unsort, 1 array) on the
+    main path's keys and the 32 KiB and 16 KiB paths', with bigsort and
+    `torch.sort` beside it and the clusters the card holds at once; then
+    the planner's 2-key sort of one stream of the default 32 MiB (2^23
+    quads: cluster spans merged by global launches). Returns the main
+    shape's row (2 arrays)."""
+    import torch
+    from density_tpu_torch.kernels import bigsort, bitonic
+    main = None
+    for quads in (inputs[0], small[SMALL_STREAMS[0]][0],
+                  small[SMALL_STREAMS[1]][0]):
+        S, N = quads.shape
+        key = main_key(dev, quads)
+        for arrs in ((key, quads), (key,)):
+            ms, n = device_profile(lambda: bitonic.sort(*arrs, n_keys=1))
+            resident = (f"; {bitonic.resident_clusters(len(arrs), 1, N)} "
+                        f"clusters of {N >> 13} CTAs resident at once, "
+                        f"{S} to run" if N > 16384 else "")
+            r = dict(
+                ms=ms,
+                # the plain version on the main shape only (9 ms a call)
+                plain_ms=None if main else device_ms(
+                    lambda: bitonic.sort_plain(*arrs, n_keys=1), iters=2),
+                library_ms=device_ms(lambda: torch.sort(key, dim=1)),
+                bigsort_ms=device_ms(lambda: bigsort.sort(*arrs, n_keys=1)),
+                bound=sort_bound(S, N, len(arrs)),
+                shape=f"S={S} N={N} 1 key {len(arrs)} array(s); {n:g} "
+                      f"kernel launches per sort in the trace{resident}")
+            main = main or r
+            log_row("bitonic", r)
+    arrs = sort_inputs(np.random.default_rng(6), dev, 1, 1 << 23, 2, 2, False)
+    ms, n = device_profile(lambda: bitonic.sort(*arrs, n_keys=2), iters=3)
+    log_row("bitonic", dict(
+        ms=ms, plain_ms=None,
+        library_ms=device_ms(lambda: torch.sort(arrs[0], dim=1), iters=3),
+        bigsort_ms=device_ms(lambda: bigsort.sort(*arrs, n_keys=2), iters=3),
+        bound=sort_bound(1, 1 << 23, 2),
+        shape=f"S=1 N={1 << 23} 2 keys 2 arrays; {n:g} kernel launches per "
+              "sort in the trace"))
+    return main
 
 
 def time_sort_option(inputs, small) -> None:
@@ -676,8 +710,10 @@ def time_sort_option(inputs, small) -> None:
 def log_row(name: str, r: dict) -> None:
     lib, plain = (f"{r[k]:.4f}" if r[k] is not None else "n/a"
                   for k in ("library_ms", "plain_ms"))
+    big = (f", bigsort {r['bigsort_ms']:.4f} ms" if "bigsort_ms" in r
+           else "")
     log(f"(f) {name} [{r['shape']}]: device {r['ms']:.4f} ms, plain "
-        f"{plain} ms, library {lib} ms, bound "
+        f"{plain} ms, library {lib} ms{big}, bound "
         f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
 
 

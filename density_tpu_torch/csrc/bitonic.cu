@@ -1,4 +1,5 @@
-// Row-wise bitonic sort, the whole network in one launch (Hopper, sm_90a).
+// Row-wise bitonic sort, a row held on chip in one launch (Hopper,
+// sm_90a).
 //
 // Replaces the TPU kernel density_tpu/kernels/bitonic.py::sort (the
 // Pallas kernel that runs every pass of the Batcher network on a row held
@@ -9,152 +10,232 @@
 // (i & k) == 0), so the output equals bigsort.cu's and the TPU kernels'
 // element for element, ties included.
 //
-// One CTA per row, one launch per sort:
-//   * a row of NA * N * 4 bytes within the card's opt-in shared-memory
-//     limit (227 KB on the H100: N <= 16384 with 3 arrays) is loaded
-//     once, runs every pass in shared memory and is stored once;
-//   * a longer row is cut into tiles of T elements, the largest power of
-//     two that fits: each tile is sorted in shared memory in turn; then
-//     for each stage k > T the passes of distance >= T run over the row
-//     in global memory (it stays in L2), with __syncthreads() between
-//     passes, and the passes below T run tile by tile in shared memory.
-//
-// What bounds it on this card: bytes. A sort of 38 x 65536 x 2 int32
-// arrays must move 40 MB in and out once (12 us at 3.35 TB/s); the
-// compares are far below the ALU rate. The design keeps every pass of a
-// small row in shared memory and needs no second launch; for rows past
-// shared memory it trades parallelism (one SM per row) for launches.
+// What bounds it on this card: bytes, in principle (a sort of 38 x
+// 65536 x 2 int32 arrays moves 40 MB in and out once, 12 us at 3.35
+// TB/s); in practice the passes' trips through shared memory and the
+// barriers between them. The TPU kernel's trait is that the whole
+// network runs in one launch on a row held on chip; here that row lives
+// in the shared memory of a thread-block cluster:
+//   * N <= 16384: one CTA per row runs the whole network in the levels of
+//     sort_levels.cuh (registers, warp shuffles, a column layout through
+//     shared memory): bigsort.cu's tile kernel, one launch;
+//   * N = 32768 or 65536: a cluster of C = N / 8192 CTAs (4 or 8, within
+//     the portable limit) holds the row, 8192 elements of each array in
+//     each CTA's shared memory (66 KB for 2 arrays, 99 KB for 3). Each CTA
+//     sorts its tile in its own levels. For each merge stage k = 16384
+//     ... N, the passes of distance >= 8192 differ only in the CTA-rank
+//     bits (b = 1-3 of them): after a cluster barrier, each thread
+//     gathers through distributed shared memory the 2^b elements that
+//     differ only in those bits, from its own slice of the tile in each
+//     CTA of its group of 2^b, runs the b passes in registers and writes
+//     them back; after a second barrier the CTA runs distances 4096 ...
+//     1 in its own levels. One launch, two cluster barriers a stage;
+//   * N > 65536: the cluster kernel sorts each 65536-element span; each
+//     merge stage above it is one global launch per 4 bits above the span
+//     (sort_levels.cuh's global kernel) plus one cluster launch for the
+//     distances below it: 1 + 2 log2(N / 65536) launches up to N = 2^20.
+// A cluster launch that the card refuses returns its error; nothing
+// falls back. The first launch reads the caller's arrays and writes the
+// output, so nothing is copied.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
+
+#include "sort_levels.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
+namespace cg = cooperative_groups;
 
-template <int NK>
-__device__ __forceinline__ bool lex_less(int32_t a1, int32_t a2, int32_t b1,
-                                         int32_t b2) {
-  if (NK == 1) return a1 < b1;
-  return a1 < b1 || (a1 == b1 && a2 < b2);
-}
+constexpr int kMinLogN = 8;                      // N >= 256
+constexpr int kLogT = 13;                        // a cluster CTA's tile
+constexpr int kLogSpan = kLogT + 3;              // 8 CTAs: 65536
+constexpr int kClusterThreads = tile_threads(kLogT);  // 512
 
-// compare-exchange of (lo, hi): swap when out of order for `asc`
-template <int NA, int NK>
-__device__ __forceinline__ void cmp_swap(int32_t* const* arr, int lo, int hi,
-                                         bool asc) {
-  const int32_t l1 = arr[0][lo], h1 = arr[0][hi];
-  int32_t l2 = 0, h2 = 0;
-  if (NK == 2) {
-    l2 = arr[1][lo];
-    h2 = arr[1][hi];
-  }
-  const bool swap = asc ? lex_less<NK>(h1, h2, l1, l2)
-                        : lex_less<NK>(l1, l2, h1, h2);
-  if (swap) {
+// Stage k's passes on the CTA-rank bits log2 T ... log2 T + B - 1, on
+// the cluster's shared memory: CTA m of each group of G = 2^B ranks takes
+// slice m of the tile indices, thread t the indices m T/G + t + 512 i,
+// i < kE / G. It loads the G elements of each of its indices (one from
+// each CTA of the group, consecutive threads on consecutive slots), runs
+// the B passes in registers (the direction, (col0 & k), is the group's)
+// and writes them back. Index x + 512 i lies in slot pad(x) + 528 i, so
+// each access is a pointer of the group plus a compile-time offset.
+template <int NA, int NK, int B>
+__device__ __forceinline__ void cluster_passes(cg::cluster_group& cl,
+                                               int32_t* smem, int col0,
+                                               int k) {
+  constexpr int G = 1 << B, T = 1 << kLogT, pitch = tile_pitch(kLogT);
+  constexpr int step = kClusterThreads + kClusterThreads / 32;
+  const int rank = (int)cl.block_rank();
+  const int base = rank & ~(G - 1);
+  int32_t* const mine =
+      smem + pad((rank & (G - 1)) * (T / G) + (int)threadIdx.x);
+  int32_t* r[G];
 #pragma unroll
-    for (int a = 0; a < NA; ++a) {
-      const int32_t t = arr[a][lo];
-      arr[a][lo] = arr[a][hi];
-      arr[a][hi] = t;
-    }
-  }
+  for (int g = 0; g < G; ++g) r[g] = cl.map_shared_rank(mine, base | g);
+  int32_t v[NA][kE];  // element g of index i at i G + g
+#pragma unroll
+  for (int i = 0; i < kE / G; ++i)
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        v[a][i * G + g] = r[g][a * pitch + i * step];
+  const bool asc = (col0 & k) == 0;
+#pragma unroll
+  for (int q = B - 1; q >= 0; --q)
+#pragma unroll
+    for (int e = 0; e < kE; ++e)
+      if (!(e & (1 << q))) reg_ce<NA, NK, kE>(v, e, e | (1 << q), asc);
+#pragma unroll
+  for (int i = 0; i < kE / G; ++i)
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        r[g][a * pitch + i * step] = v[a][i * G + g];
 }
 
-// The passes of stage k from distance j_hi down to j_lo over `len`
-// elements of `arr` (shared or global memory), whose first element is
-// element `first` of its row (the direction depends on the row index).
+// One cluster of C = span / T CTAs per span of a row (the whole row up to
+// 65536). Sort launch (k_first = 2): each CTA sorts its tile, then the
+// merge stages 2T ... span run across the cluster. Merge launch (k_first
+// = k > span, its distances >= span done by the global launch before):
+// stage k from distance span/2 down to 1.
 template <int NA, int NK>
-__device__ void passes(int32_t* const* arr, int len, int first, int k,
-                       int j_hi, int j_lo) {
-  for (int j = j_hi; j >= j_lo; j >>= 1) {
-    for (int p = threadIdx.x; p < (len >> 1); p += blockDim.x) {
-      const int lo = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-      cmp_swap<NA, NK>(arr, lo, lo + j, ((first + lo) & k) == 0);
-    }
-    __syncthreads();
-  }
-}
-
-template <int NA>
-__device__ void copy_tile(int32_t* const* dst, int32_t* const* src, int T) {
+__global__ void __launch_bounds__(kClusterThreads, 2)
+    cluster_kernel(Arrays src, int32_t* d0, int32_t* d1, int32_t* d2,
+                   int log_n, int k_first) {
+  extern __shared__ int32_t smem[];
+  constexpr int T = 1 << kLogT, pitch = tile_pitch(kLogT);
+  cg::cluster_group cl = cg::this_cluster();
+  int32_t* s[3] = {smem, smem + pitch, smem + 2 * pitch};
+  int32_t* dst[3] = {d0, d1, d2};
+  const int row = blockIdx.x >> (log_n - kLogT);
+  const int col0 = (blockIdx.x << kLogT) & ((1 << log_n) - 1);
+  const int tid = threadIdx.x, first = tid * kE;
+  const int log_span = log_n < kLogSpan ? log_n : kLogSpan;
+  int32_t v[NA][kE];
 #pragma unroll
   for (int a = 0; a < NA; ++a)
-    for (int i = threadIdx.x; i < T; i += blockDim.x) dst[a][i] = src[a][i];
-  __syncthreads();
-}
-
-template <int NA, int NK>
-__global__ void __launch_bounds__(kThreads)
-    bitonic_kernel(int32_t* a0, int32_t* a1, int32_t* a2, int N, int T) {
-  extern __shared__ int32_t smem[];
-  const int64_t off = (int64_t)blockIdx.x * N;
-  int32_t* row[3] = {a0 + off, NA > 1 ? a1 + off : nullptr,
-                     NA > 2 ? a2 + off : nullptr};
-  int32_t* s[3] = {smem, smem + T, smem + 2 * T};
-  // every tile sorted through stage T (the whole row when T == N)
-  for (int c = 0; c < N; c += T) {
-    int32_t* g[3] = {row[0] + c, NA > 1 ? row[1] + c : nullptr,
-                     NA > 2 ? row[2] + c : nullptr};
-    copy_tile<NA>(s, g, T);
-    for (int k = 2; k <= T; k <<= 1) passes<NA, NK>(s, T, c, k, k >> 1, 1);
-    copy_tile<NA>(g, s, T);
+    load_elems(v[a], src.p[a] + ((int64_t)row << log_n) + col0 + first, T);
+  int k = k_first;
+  if (k == 2) {
+    tile_stages<NA, NK, kClusterThreads>(v, s, kLogT, col0, 2, T, false);
+    k = 2 * T;
   }
-  // the merge stages above T: long distances in global memory, short
-  // ones tile by tile in shared memory
-  for (int k = T << 1; k <= N; k <<= 1) {
-    passes<NA, NK>(row, N, 0, k, k >> 1, T);
-    for (int c = 0; c < N; c += T) {
-      int32_t* g[3] = {row[0] + c, NA > 1 ? row[1] + c : nullptr,
-                       NA > 2 ? row[2] + c : nullptr};
-      copy_tile<NA>(s, g, T);
-      passes<NA, NK>(s, T, c, k, T >> 1, 1);
-      copy_tile<NA>(g, s, T);
+  const int k_last = k_first > 2 ? k_first : 1 << log_span;
+  for (; k <= k_last; k <<= 1) {
+    to_smem<NA>(s, v, pad(first));
+    cl.sync();
+    const int log_k = 31 - __clz(k);
+    switch ((log_k < log_span ? log_k : log_span) - kLogT) {
+      case 1: cluster_passes<NA, NK, 1>(cl, smem, col0, k); break;
+      case 2: cluster_passes<NA, NK, 2>(cl, smem, col0, k); break;
+      default: cluster_passes<NA, NK, 3>(cl, smem, col0, k);
     }
+    cl.sync();
+    from_smem_cols<NA>(v, s, tid, kClusterThreads);
+    tile_stages<NA, NK, kClusterThreads>(v, s, kLogT, col0, k, k, true);
   }
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+    store_elems(dst[a] + ((int64_t)row << log_n) + col0 + first, v[a], T);
 }
 
 template <int NA, int NK>
-int run(int32_t* a0, int32_t* a1, int32_t* a2, int S, int N,
-        cudaStream_t stream) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e != cudaSuccess) return (int)e;
-  int T = N;
-  while (T > 2 && (size_t)NA * T * sizeof(int32_t) > (size_t)optin) T >>= 1;
-  const size_t smem = (size_t)NA * T * sizeof(int32_t);
-  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(bitonic_kernel<NA, NK>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int threads = (T >> 1) < kThreads ? (T >> 1) : kThreads;
-  bitonic_kernel<NA, NK><<<S, threads, smem, stream>>>(a0, a1, a2, N, T);
-  return (int)cudaGetLastError();
+int cluster_setup() {
+  static const int rc = (int)cudaFuncSetAttribute(
+      cluster_kernel<NA, NK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)tile_smem(NA, kLogT));
+  return rc;
 }
+
+// The launch of cluster_kernel<NA, NK> over S rows of 2^log_n (> 16384);
+// `attr` holds its cluster dimension.
+template <int NA>
+cudaLaunchConfig_t cluster_config(int S, int log_n, cudaStream_t st,
+                                  cudaLaunchAttribute* attr) {
+  const int log_span = log_n < kLogSpan ? log_n : kLogSpan;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1u << (log_span - kLogT);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)S << (log_n - kLogT));
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = tile_smem(NA, kLogT);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int NA, int NK>
+int launch_cluster(const Arrays& src, int32_t* const* dst, int S, int log_n,
+                   int k_first, cudaStream_t st) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config<NA>(S, log_n, st, &attr);
+  return (int)cudaLaunchKernelEx(&cfg, cluster_kernel<NA, NK>, src, dst[0],
+                                 dst[1], dst[2], log_n, k_first);
+}
+
+struct Plan {
+  template <int NA, int NK>
+  static int run(const Arrays& src, int32_t* const* dst, int S, int log_n,
+                 cudaStream_t st) {
+    int rc;
+    if (log_n <= kMaxLogTile) {
+      if ((rc = tile_setup<NA, NK>())) return rc;
+      return launch_tile<NA, NK>(src, dst, S, log_n, log_n, 2, st);
+    }
+    if ((rc = cluster_setup<NA, NK>())) return rc;
+    if ((rc = launch_cluster<NA, NK>(src, dst, S, log_n, 2, st))) return rc;
+    const Arrays out = {{dst[0], dst[1], dst[2]}};
+    for (int log_k = kLogSpan + 1; log_k <= log_n; ++log_k) {
+      if ((rc = launch_global_stage<NA, NK>(dst, S, log_n, kLogSpan, log_k,
+                                            st)))
+        return rc;
+      if ((rc = launch_cluster<NA, NK>(out, dst, S, log_n, 1 << log_k, st)))
+        return rc;
+    }
+    return 0;
+  }
+};
+
+// The number of clusters of the cluster kernel that the card holds at
+// once (cudaOccupancyMaxActiveClusters) for rows of 2^log_n > 16384,
+// written to dst[0][0].
+struct Occupancy {
+  template <int NA, int NK>
+  static int run(const Arrays&, int32_t* const* dst, int, int log_n,
+                 cudaStream_t) {
+    if (log_n <= kMaxLogTile) return (int)cudaErrorInvalidValue;
+    int rc = cluster_setup<NA, NK>();
+    if (rc) return rc;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config<NA>(1, log_n, 0, &attr);
+    return (int)cudaOccupancyMaxActiveClusters(dst[0], cluster_kernel<NA, NK>,
+                                               &cfg);
+  }
+};
 
 }  // namespace
 
-// Sorts in place. a1/a2 may be null when n_arrays < 2/3. Returns the CUDA
-// error code of the launch (0 = success).
-extern "C" int bitonic_sort(void* a0, void* a1, void* a2, int n_arrays,
+// Sorts the contiguous, 16-byte aligned (S, N) arrays s0..s2 into the
+// fresh outputs d0..d2; unused arrays are null. Returns the CUDA error
+// code (0 = success).
+extern "C" int bitonic_sort(const void* s0, const void* s1, const void* s2,
+                            void* d0, void* d1, void* d2, int n_arrays,
                             int n_keys, int S, int N, void* stream) {
-  int32_t* p0 = static_cast<int32_t*>(a0);
-  int32_t* p1 = static_cast<int32_t*>(a1);
-  int32_t* p2 = static_cast<int32_t*>(a2);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N < 256 || (N & (N - 1)) != 0 || S < 1)
-    return (int)cudaErrorInvalidValue;
-  if (n_keys == 1) {
-    if (n_arrays == 1) return run<1, 1>(p0, p1, p2, S, N, st);
-    if (n_arrays == 2) return run<2, 1>(p0, p1, p2, S, N, st);
-    if (n_arrays == 3) return run<3, 1>(p0, p1, p2, S, N, st);
-  } else if (n_keys == 2) {
-    if (n_arrays == 2) return run<2, 2>(p0, p1, p2, S, N, st);
-    if (n_arrays == 3) return run<3, 2>(p0, p1, p2, S, N, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (N < (1 << kMinLogN)) return (int)cudaErrorInvalidValue;
+  return dispatch<Plan>(s0, s1, s2, d0, d1, d2, n_arrays, n_keys, S, N,
+                        stream);
+}
+
+// Writes to *clusters how many clusters of the sort of rows of N > 16384
+// elements (n_arrays, n_keys) the card holds at once. Returns the CUDA
+// error code.
+extern "C" int bitonic_clusters(int n_arrays, int n_keys, int N,
+                                int* clusters) {
+  return dispatch<Occupancy>(nullptr, nullptr, nullptr, clusters, nullptr,
+                             nullptr, n_arrays, n_keys, 1, N, nullptr);
 }

@@ -4,9 +4,10 @@ Each source under `density_tpu_torch/csrc/` is compiled by `nvcc` into
 its own shared library with a plain C interface and loaded with ctypes
 (no PyTorch headers, so a build takes seconds). Libraries go to
 `density_tpu_torch/build/` (git-ignored), named by a digest of the
-source and the flags, and are built at first use. Each build writes a
-temporary file and `os.replace`s it into place, so processes that build
-at the same time never load a half-written library.
+source, every header under `csrc/` (`*.cuh`) and the flags, and are
+built at first use. Each build writes a temporary file and
+`os.replace`s it into place, so processes that build at the same time
+never load a half-written library.
 """
 
 from __future__ import annotations
@@ -39,9 +40,11 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for hdr in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=KERNELS) -> dict[str, str]:

@@ -43,9 +43,18 @@ def sort(*arrays: torch.Tensor, n_keys: int = 1):
     """Returns the sorted copies of `arrays` as a tuple of (S, N) int32."""
     global launches
     check_args(arrays, n_keys)
-    S, N = arrays[0].shape
     if arrays[0].device.type != "cuda":
         return sort_plain(*arrays, n_keys=n_keys)
+    outs = launch("bigsort", arrays, n_keys)
+    launches += 1
+    return outs
+
+
+def launch(name: str, arrays, n_keys: int):
+    """Sorts checked CUDA `arrays` with the C entry point `<name>_sort` of
+    `csrc/<name>.cu` (bigsort's and bitonic's take the same arguments)
+    into fresh outputs, and returns them."""
+    S, N = arrays[0].shape
     # the kernel reads contiguous rows in 16-byte vectors: int32 arrays in
     # that layout (those of the paths) go in as they are, others are copied
     srcs = [a.to(torch.int32) for a in arrays]
@@ -54,12 +63,11 @@ def sort(*arrays: torch.Tensor, n_keys: int = 1):
     outs = [torch.empty((S, N), dtype=torch.int32, device=a.device)
             for a in srcs]
     pad = [None] * (3 - len(srcs))
-    fn = _build.function("bigsort", "bigsort_sort", 11, range(6, 10))
+    fn = _build.function(name, f"{name}_sort", 11, range(6, 10))
     rc = fn(*[_build.ptr(a) for a in srcs], *pad,
             *[_build.ptr(o) for o in outs], *pad,
             len(srcs), n_keys, S, N, _build.stream_ptr(srcs[0].device))
-    _build.check(rc, "bigsort")
-    launches += 1
+    _build.check(rc, name)
     return tuple(outs)
 
 

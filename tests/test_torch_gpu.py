@@ -118,18 +118,30 @@ def test_bigsort_launches_per_sort(cuda, S, N, n_arr, want):
     sort while a row fits in a tile of 16384; above, the sort of its
     8192-element tiles, then for each merge stage a launch per 4 bits it
     spans above its 4096-element tiles and a tile launch."""
-    from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(N + n_arr)
     arrs = [a.to(cuda) for a in _sort_inputs(rng, S, N, 1, n_arr, True)]
-    bigsort.sort(*arrs, n_keys=1)
+    assert _traced_launches(lambda: bigsort.sort(*arrs, n_keys=1)) == 3 * want
+
+
+def _traced_launches(fn, calls=3, sessions=3):
+    """The sort kernels' launches in `calls` calls of `fn`, as the
+    profiler's trace counts them: the most of `sessions` sessions, since
+    a session now and then drops an event (seen on the H100) but never
+    adds one."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            bigsort.sort(*arrs, n_keys=1)
-        torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if "tile_kernel" in e.key or "global_kernel" in e.key)
-    assert n == 3 * want
+    counts = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts.append(sum(
+            e.count for e in prof.key_averages()
+            if any(name in e.key for name in
+                   ("tile_kernel", "cluster_kernel", "global_kernel"))))
+    return max(counts)
 
 
 @pytest.mark.parametrize("tail", [0, 1, 3, 555])
@@ -153,23 +165,41 @@ def test_pack_matches_plain(cuda, tail):
 
 @pytest.mark.parametrize("S,N,n_keys,n_arr", [
     (3, 256, 1, 1), (5, 4096, 1, 2), (3, 8192, 1, 3), (4, 16384, 2, 3),
-    (2, 65536, 1, 2), (2, 1 << 17, 2, 2)])
+    (3, 32768, 1, 1), (40, 32768, 2, 3), (38, 65536, 1, 2), (40, 65536, 1, 1),
+    (38, 65536, 2, 3), (2, 65536, 1, 2), (2, 1 << 17, 2, 2),
+    (5, 1 << 17, 1, 3), (2, 1 << 18, 1, 2), (1, 1 << 18, 2, 3)])
 def test_bitonic_matches_plain_and_bigsort(cuda, S, N, n_keys, n_arr):
-    """Rows that fit in shared memory and rows that do not (N >= 32768
-    with 2 arrays); the output also equals bigsort's."""
+    """Keys in -50..49 (many ties), so that the carried arrays show the
+    network's order: rows of one CTA (N <= 16384), of one cluster of 4 or
+    8 CTAs (S = 38 and 40 leave the last clusters for a second round on
+    the card), and longer rows (cluster spans merged by global launches).
+    The output also equals bigsort's."""
     rng = np.random.default_rng(N + 7 * n_arr)
-    arrs = [torch.from_numpy(rng.integers(-50, 50, (S, N)).astype(np.int32))
-            for _ in range(n_keys)]
-    arrs += [torch.from_numpy(rng.integers(-2**31, 2**31, (S, N),
-                                           dtype=np.int64).astype(np.int32))
-             for _ in range(n_arr - n_keys)]
-    got = bitonic.sort(*(a.to(cuda) for a in arrs), n_keys=n_keys)
+    arrs = [a.to(cuda) for a in _sort_inputs(rng, S, N, n_keys, n_arr, True)]
+    got = bitonic.sort(*arrs, n_keys=n_keys)
     torch.cuda.synchronize()
+    # the plain version on the card: the same arithmetic, faster than the
+    # CPU at these sizes
     want = bitonic.sort_plain(*arrs, n_keys=n_keys)
-    big = bigsort.sort(*(a.to(cuda) for a in arrs), n_keys=n_keys)
+    big = bigsort.sort(*arrs, n_keys=n_keys)
+    assert len(got) == n_arr
     for g, w, b in zip(got, want, big):
-        assert torch.equal(g.cpu(), w)
+        assert torch.equal(g, w)
         assert torch.equal(g, b)
+
+
+@pytest.mark.parametrize("S,N,n_arr,want", [
+    (311, 8192, 2, 1), (622, 4096, 1, 1), (3, 16384, 3, 1), (40, 32768, 2, 1),
+    (38, 65536, 2, 1), (38, 65536, 1, 1), (2, 1 << 17, 3, 3),
+    (2, 1 << 18, 2, 5)])
+def test_bitonic_launches_per_sort(cuda, S, N, n_arr, want):
+    """The kernel launches of three sorts, counted by the profiler: one a
+    sort while a row has at most 65536 elements (one CTA, or one cluster
+    per row); above, the sort of its 65536-element spans, then for each
+    merge stage a global launch and a cluster launch."""
+    rng = np.random.default_rng(N + n_arr)
+    arrs = [a.to(cuda) for a in _sort_inputs(rng, S, N, 1, n_arr, True)]
+    assert _traced_launches(lambda: bitonic.sort(*arrs, n_keys=1)) == 3 * want
 
 
 def _geometry_tokens(rng, S, N, q, flag_bits, nbytes):
