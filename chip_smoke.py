@@ -7,7 +7,9 @@ Needs one CUDA card and `nvcc`; imports no JAX. Phases:
   (a) build the five CUDA kernels from `density_tpu_torch/csrc/`;
   (b) hold each kernel against its plain PyTorch version on the card,
       bit for bit, at the shapes of the paths below (and a
-      malformed-offset case that must raise DecodeError); bigsort also
+      malformed-offset case that must raise DecodeError); packroute also
+      at the three geometries at 16384-2^23 quads, unpack at flag_bits
+      1-3 with copy, dead and malformed blocks; bigsort also
       on tie-heavy keys at rows of 2^15-2^17, whose merges take global
       launches of 1-4 bits; bitonic also at rows of one CTA, one
       cluster and longer (2^12-2^18, tie-heavy), and equal to bigsort;
@@ -25,9 +27,11 @@ Needs one CUDA card and `nvcc`; imports no JAX. Phases:
       torch.profiler (bigsort and bitonic at every shape the paths sort,
       with the kernel launches per sort that the trace counts; bitonic
       with bigsort's time beside it and the clusters the card holds at
-      once, and on one 32 MiB stream); one profiler trace each of
-      encode and decode at 256 KiB and 32 KiB; the encode with the
-      default sort and under DENSITY_TPU_SORT=bitonic, in turns;
+      once, and on one 32 MiB stream; packroute and unpack with their
+      kernel launches per call); one profiler trace each of encode and
+      decode at 256 KiB and 32 KiB; the host syncs of one decode; the
+      encode with the default sort and under DENSITY_TPU_SORT=bitonic,
+      in turns;
   (g) small streams: the corpus in 32 KiB and 16 KiB streams (4096- and
       8192-quad shapes, the pack kernel), compress and decompress on the
       card with launch counts, three streams of each held against the
@@ -36,7 +40,11 @@ Needs one CUDA card and `nvcc`; imports no JAX. Phases:
       kernel) at 256 KiB and 32 KiB streams, and pack mode "onehot" at
       256 KiB, each byte-identical to the default containers;
   (i) the one-shot API: `encode_raw`/`decode_raw` on the card against
-      the scalar backend and the CPU path.
+      the scalar backend and the CPU path;
+  (j) large streams: the corpus in 1 MiB streams (2^18 quads) and in
+      the default 32 MiB stream (one stream of 2^22 quads), compress
+      and decompress on the card with launch counts, held against the
+      CPU path on a stream or a 2 MiB prefix.
 Prints the card's name and power limit, a `kernels` JSON line and, last,
 the device JSON line. Any failure exits non-zero. Writes the compiler's
 register report to `DIR/ptxas.txt` and the profiles to
@@ -57,6 +65,7 @@ import numpy as np
 
 STREAM = 256 << 10  # bytes per stream of the device grain
 SMALL_STREAMS = (32 << 10, 16 << 10)  # 8192- and 4096-quad streams
+LARGE_STREAMS = (1 << 20, 32 << 20)  # 2^18 quads; the library default
 CORPUS_SIZE = 10_192_446
 REPEATS = 5  # timing windows of the device-resident encode and decode
 OUT_DIR = "smoke_out"  # reports too long for the standard output
@@ -235,6 +244,43 @@ def geometry_tokens(rng, S: int, N: int, q: int, flag_bits: int, nbytes):
     return [torch.from_numpy(x.astype(np.int32)) for x in (flags, pw, w0, w1)]
 
 
+def geometry_blocks(rng, S: int, NB: int, q: int, sig_words: int):
+    """Seeded compressed words with back-to-back block offsets (each block
+    a random length up to its largest), a tenth of the blocks copy
+    blocks, a tenth dead, the last blocks reading past W, and junk above
+    the 16 bits of each word."""
+    import torch
+    span = sig_words + 2 * q
+    lens = rng.integers(sig_words, span + 1, (S, NB))
+    woff = (np.cumsum(lens, axis=1) - lens).astype(np.int32)
+    is_copy = rng.random((S, NB)) < 0.1
+    woff[rng.random((S, NB)) < 0.1] = -1
+    W = int(woff.max()) + sig_words + 5
+    words = rng.integers(0, 1 << 16, (S, W)).astype(np.int32)
+    words |= rng.integers(0, 2, (S, W)).astype(np.int32) << 20
+    return [torch.from_numpy(x) for x in (words, woff, is_copy)]
+
+
+def host_syncs(fn) -> int:
+    """The host syncs that PyTorch's CUDA sync debug mode reports in one
+    warm call of `fn` (it sees PyTorch's own syncs: copies to the host,
+    `.item()`, stream synchronisation)."""
+    import warnings
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
 # ---------------------------------------------------------------- phases
 
 def phase_build() -> None:
@@ -256,7 +302,8 @@ def phase_build() -> None:
 def path_inputs(dev, data: bytes, stream: int = STREAM):
     """Staged encode inputs of the full streams of `stream` bytes (38 at
     the main path's 256 KiB), the plan the path hands its pack kernel,
-    and the staged decode inputs."""
+    the staged decode inputs, the compressed payload's bytes and the
+    container."""
     import torch
     from density_tpu_torch import container
     from density_tpu_torch.codecs import chameleon
@@ -276,7 +323,8 @@ def path_inputs(dev, data: bytes, stream: int = STREAM):
                               device=dev)
     dargs, streams, _ = sharding.decode_prep(blob, dev)
     live_bytes = sum(len(s) for s in streams)  # compressed payload
-    return quads, nbytes, (flags, pw, w0, w1, nb_rag), dargs, live_bytes
+    return (quads, nbytes, (flags, pw, w0, w1, nb_rag), dargs, live_bytes,
+            blob)
 
 
 def phase_parity(dev, data: bytes, rnd: bytes):
@@ -288,7 +336,7 @@ def phase_parity(dev, data: bytes, rnd: bytes):
     errs = {}
     rng = np.random.default_rng(0)
     inputs = path_inputs(dev, data)
-    quads, nbytes, pack_in, dargs, _ = inputs
+    quads, nbytes, pack_in, dargs, _, _ = inputs
     S, N = quads.shape
     # sort: the encode's forward sort (biased hash|index key + quad);
     # tie-heavy keys, where only the same network puts the carried arrays
@@ -323,6 +371,26 @@ def phase_parity(dev, data: bytes, rnd: bytes):
     errs["packroute"] = max_abs_err(got, packroute.pack_plain(*pack_in, **kw))
     log(f"(b) packroute: S={S} N={N} with tails 1/3/555, "
         f"max_abs_err {errs['packroute']}")
+    # the three geometries at 16384 ... 2^23 quads: ragged tails of 0-3
+    # bytes, streams ending inside a block, padding blocks, an empty one
+    err = errs["packroute"]
+    for N_g, S_g in ((16384, 12), (65536, 12), (1 << 18, 8), (1 << 23, 1)):
+        for q, sw, fb in ((64, 4, 1), (32, 4, 2), (16, 3, 3)):
+            full = 4 * N_g
+            nb = np.array([full, full - 1, full - 2, full - 3, 1000, 0,
+                           full // 3 + 1, 4 * q * 5, 13, full - 4 * q - 2,
+                           full // 2, 2 * q + 3][:S_g], np.int32)
+            toks = [x.to(dev) for x in geometry_tokens(rng, S_g, N_g, q, fb,
+                                                        nb)]
+            toks.append(torch.from_numpy(nb).to(dev))
+            kw = dict(q=q, sig_words=sw, block=4 * q, flag_bits=fb)
+            got = packroute.pack(*toks, **kw)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, packroute.pack_plain(*toks,
+                                                                 **kw)))
+    errs["packroute"] = err
+    log("(b) packroute: geometries (64, 4, 1), (32, 4, 2), (16, 3, 3) at "
+        f"N 16384/65536/2^18/2^23, max_abs_err {err}")
 
     ukw = dict(q=64, sig_words=4, flag_bits=1)
     words, woff, is_copy, nb_real, _ = dargs
@@ -350,12 +418,29 @@ def phase_parity(dev, data: bytes, rnd: bytes):
     else:
         raise AssertionError("malformed offset did not raise DecodeError")
     torch.cuda.synchronize()
-    log(f"(b) unpack: main path + copy blocks, max_abs_err {err}; "
-        "malformed offset raised DecodeError")
+    for q, sw, fb, NB in ((64, 4, 1, 1024), (32, 4, 2, 512),
+                          (16, 3, 3, 1024)):
+        gw, gwo, gcp = geometry_blocks(rng, 5, NB, q, sw)
+        gkw = dict(q=q, sig_words=sw, flag_bits=fb)
+        args = [x.to(dev) for x in (gw, gwo, gcp)]
+        got = unpack.unpack(*args, **gkw)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, unpack.unpack_plain(*args, **gkw)))
+        gwo[2, NB // 2] = gw.shape[1] - sw + 1  # its signature overruns W
+        gcp[2, NB // 2] = False
+        args = [x.to(dev) for x in (gw, gwo, gcp)]
+        *got, flag = unpack.unpack_flagged(*args, **gkw)
+        *want, wflag = unpack._plain(*args, q, sw, fb)
+        if int(flag[0]) != 1 or int(wflag[0]) != 1:
+            raise AssertionError("unpack did not flag a malformed block")
+        err = max(err, max_abs_err(tuple(got), tuple(want)))
+    log(f"(b) unpack: main path + copy blocks, flag_bits 1-3 with copy, "
+        f"dead and malformed blocks, max_abs_err {err}; malformed offsets "
+        "raised DecodeError or set the flag")
 
     # the small-stream paths (and their 4096-quad decode)
     small = {stream: path_inputs(dev, data, stream) for stream in SMALL_STREAMS}
-    for stream, (_, _, _, (w, wo, cp, nbr, _), _) in small.items():
+    for stream, (_, _, _, (w, wo, cp, nbr, _), _, _) in small.items():
         wl = torch.where(torch.arange(wo.shape[1], device=dev)[None, :]
                          < nbr[:, None], wo, -1)
         got = unpack.unpack(w, wl, cp, **ukw)
@@ -576,6 +661,49 @@ def phase_api(dev, data: bytes) -> None:
         "bytes, equal to the scalar backend and the CPU path")
 
 
+def phase_large_streams(dev, data: bytes) -> dict:
+    """Compress and decompress the corpus in 1 MiB streams (2^18 quads)
+    and in the default 32 MiB stream (one stream, 2^22 quads) on the
+    card, counted; stream 0 of the 1 MiB container against the CPU path,
+    and a 2 MiB prefix at the default stream size against the CPU path
+    (which keeps the CPU side at 2^19 quads)."""
+    from density_tpu_torch import container
+    reset_counts()
+    for stream in LARGE_STREAMS:
+        t = time.time()
+        blob = container.compress(data, "chameleon", stream, device=dev)
+        back = container.decompress(blob, device=dev)
+        dt = time.time() - t
+        if back != data:
+            raise AssertionError(f"{stream}-byte streams: round trip differs")
+        parts = payloads(blob)
+        if len(parts) != -(-len(data) // stream):
+            raise AssertionError("wrong stream count")
+        if len(data) > stream:
+            what = "stream 0 equals"
+            same = payloads(container.compress(
+                data[:stream], "chameleon", stream, device="cpu")) == [
+                    parts[0]]
+        else:
+            what = "a 2 MiB prefix's container equals"
+            prefix = data[:2 << 20]
+            same = container.compress(prefix, "chameleon", stream,
+                                      device=dev) == container.compress(
+                prefix, "chameleon", stream, device="cpu")
+        if not same:
+            raise AssertionError(f"{stream}-byte streams differ from the "
+                                 "CPU path")
+        log(f"(j) {stream}-byte streams: {len(data)} bytes in {len(parts)} "
+            f"stream(s) -> {len(blob)} bytes (ratio "
+            f"{len(data) / len(blob):.4f}), round trip exact in {dt:.2f} s "
+            f"host wall; {what} the CPU path")
+    counts = read_counts()
+    log(f"(j) launches on the large-stream paths: {counts}")
+    if min(counts[k] for k in ("bigsort", "packroute", "unpack")) < 1:
+        raise AssertionError(f"a kernel of the path was not launched: {counts}")
+    return counts
+
+
 def time_paths(name: str, quads, nbytes, dargs):
     """Median of REPEATS windows of the device-resident encode and decode."""
     from density_tpu_torch.codecs import chameleon
@@ -609,7 +737,7 @@ def phase_small_timing(dev, inputs, small):
     from density_tpu_torch.parallel import sharding
     encs = {}
     for stream in SMALL_STREAMS:
-        quads, nbytes, _, dargs, _ = small[stream]
+        quads, nbytes, _, dargs, _, _ = small[stream]
         encs[stream] = time_paths(f"{stream >> 10} KiB", quads, nbytes,
                                   dargs)
     rows = {}
@@ -721,24 +849,32 @@ def phase_timing(dev, inputs, small):
     import torch
     from density_tpu_torch.kernels import packroute, unpack
     from density_tpu_torch.parallel import sharding
-    quads, nbytes, pack_in, dargs, live_bytes = inputs
+    quads, nbytes, pack_in, dargs, live_bytes, _ = inputs
     S, N = quads.shape
     enc = time_paths("256 KiB", quads, nbytes, dargs)
 
     rows = {"bigsort": time_bigsort(dev, inputs, small)}
+    # (a dropped profiler event reads as 0.9 launches: round)
+    ms, n = device_profile(lambda: packroute.pack(*pack_in, **CHAM))
+    if round(n) != 1:
+        raise AssertionError(f"packroute made {n:g} kernel launches a call")
     rows["packroute"] = dict(
-        ms=device_ms(lambda: packroute.pack(*pack_in, **CHAM)),
+        ms=ms,
         plain_ms=device_ms(
             lambda: packroute.pack_plain(*pack_in, **CHAM), iters=3),
         library_ms=None, bound=pack_bound(S, N, 64, 4),
-        shape=f"S={S} N={N}")
+        shape=f"S={S} N={N}; {n:g} kernel launch per call in the trace")
     words, woff, is_copy, nb_real, _ = dargs
     live = torch.arange(woff.shape[1], device=dev)[None, :] < nb_real[:, None]
     woff_k = torch.where(live, woff, -1)
     ukw = dict(q=64, sig_words=4, flag_bits=1)
     W, NB = words.shape[1], woff.shape[1]
+    ms, n = device_profile(
+        lambda: unpack.unpack_flagged(words, woff_k, is_copy, **ukw))
+    if round(n) != 1:
+        raise AssertionError(f"unpack made {n:g} kernel launches a call")
     rows["unpack"] = dict(
-        ms=device_ms(lambda: unpack.unpack(words, woff_k, is_copy, **ukw)),
+        ms=ms,
         plain_ms=device_ms(
             lambda: unpack.unpack_plain(words, woff_k, is_copy, **ukw),
             iters=3),
@@ -746,12 +882,43 @@ def phase_timing(dev, inputs, small):
         # the words it needs are the compressed payload's, 4 bytes each
         bound=bound_ms(2 * live_bytes + S * NB * 5 + 3 * S * NB * 64 * 4,
                        0),
-        shape=f"S={S} W={W} NB={NB}")
+        shape=f"S={S} W={W} NB={NB}; {n:g} kernel launch (and a 4-byte "
+              "memset of the flag) per call in the trace")
     for name in ("packroute", "unpack"):
         log_row(name, rows[name])
+    time_packroute_geometries(dev)
     phase_profile({"encode": enc,
                    "decode": lambda: sharding.decode_batch(*dargs)})
+    blob = inputs[5]
+    log(f"(f) host syncs per call (CUDA sync debug mode): device-resident "
+        f"decode {host_syncs(lambda: sharding.decode_batch(*dargs))}, "
+        f"decompress of the 256 KiB container "
+        f"{host_syncs(lambda: sharding.decompress(blob, dev))}, "
+        f"device-resident encode {host_syncs(enc)}")
     return rows
+
+
+def time_packroute_geometries(dev) -> None:
+    """packroute at the three geometries at 2^18 quads (S=8) and on one
+    stream of 2^23 quads (the default 32 MiB), with its kernel launches
+    per call."""
+    import torch
+    from density_tpu_torch.kernels import packroute
+    rng = np.random.default_rng(7)
+    for (q, sw, fb), S, N in (((64, 4, 1), 8, 1 << 18),
+                              ((32, 4, 2), 8, 1 << 18),
+                              ((16, 3, 3), 8, 1 << 18),
+                              ((64, 4, 1), 1, 1 << 23)):
+        nb = np.full(S, 4 * N, np.int32)
+        toks = [x.to(dev) for x in geometry_tokens(rng, S, N, q, fb, nb)]
+        toks.append(torch.from_numpy(nb).to(dev))
+        kw = dict(q=q, sig_words=sw, block=4 * q, flag_bits=fb)
+        ms, n = device_profile(lambda: packroute.pack(*toks, **kw))
+        log_row("packroute", dict(
+            ms=ms, plain_ms=None, library_ms=None,
+            bound=pack_bound(S, N, q, sw),
+            shape=f"S={S} N={N} q={q} flag_bits={fb}; {n:g} kernel launch "
+                  "per call"))
 
 
 def time_bigsort(dev, inputs, small) -> dict:
@@ -860,6 +1027,7 @@ def main() -> int:
     opt_counts = phase_options(dev, data, main_blob,
                                small_blobs[SMALL_STREAMS[0]])
     phase_api(dev, data)
+    phase_large_streams(dev, data)
     # each kernel's count from its own path's counted run
     counts = {k: main_counts[k] for k in ("bigsort", "packroute", "unpack")}
     counts["pack"] = small_counts["pack"]

@@ -101,8 +101,10 @@ def decode_chameleon_batch(words, woff, is_copy, nb_real, out_len):
     words: (S, W) u16 values of the compressed streams; woff: (S, NB)
     int32 block word offsets; is_copy: (S, NB) bool; nb_real, out_len:
     (S,) int32. NB * 64 must be a power of two. Returns (S, NB * 128)
-    int32 output halfwords; the ragged-tail bytes are stamped on the
-    host by the caller."""
+    int32 output halfwords and unpack's one-element malformed-block flag,
+    both on the device (as the reference's decode returns its words and
+    ok flags); the caller reads the flag with the words and stamps the
+    ragged-tail bytes on the host."""
     Q = SPEC.quads_per_block
     S, _ = words.shape
     NB = woff.shape[1]
@@ -114,11 +116,15 @@ def decode_chameleon_batch(words, woff, is_copy, nb_real, out_len):
     real = kidx < (out_len[:, None] // 4)
 
     woff_k = torch.where(is_real_block, woff, -1)
-    flags, w0, w1 = unpack.unpack(words, woff_k, is_copy, q=Q,
-                                  sig_words=SPEC.sig_words,
-                                  flag_bits=SPEC.flag_bits)
+    flags, w0, w1, bad = unpack.unpack_flagged(
+        words, woff_k, is_copy, q=Q, sig_words=SPEC.sig_words,
+        flag_bits=SPEC.flag_bits)
     blk_ok = is_real_block & ~is_copy
-    valid = real & blk_ok.repeat_interleave(Q, dim=1)
+
+    def per_quad(x):  # per block -> per quad, with no host sync
+        return x[:, :, None].expand(S, NB, Q).reshape(S, N)
+
+    valid = real & per_quad(blk_ok)
     is_map = (flags == 1) & valid
     is_plain = valid & ~is_map
     plain_quad = w0 | (w1 << 16)
@@ -128,10 +134,9 @@ def decode_chameleon_batch(words, woff, is_copy, nb_real, out_len):
     # copy blocks come out of unpack as raw halfword pairs; the ragged
     # final quad of a trailing copy block is real data too
     real_pad = kidx < ((out_len[:, None] + 3) // 4)
-    in_copy = real_pad & (is_copy & is_real_block).repeat_interleave(
-        Q, dim=1)
+    in_copy = real_pad & per_quad(is_copy & is_real_block)
     quads = torch.where(in_copy, plain_quad, quads)
     valid = valid | in_copy
     lo = torch.where(valid, quads & 0xFFFF, 0)
     hi = torch.where(valid, (quads >> 16) & 0xFFFF, 0)
-    return torch.stack([lo, hi], dim=-1).reshape(S, 2 * N)
+    return torch.stack([lo, hi], dim=-1).reshape(S, 2 * N), bad

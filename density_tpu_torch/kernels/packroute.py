@@ -11,9 +11,10 @@ ceil(nbytes / block)) adding nothing, and the 1-3 ragged tail bytes --
 stamped by the caller into w0/w1 at the partial quad, whose pw is 0 --
 written at Wtot and Wtot + 1 (reference: codec.rs:58-62).
 
-On a CUDA tensor `pack` launches `csrc/packroute.cu`; on a CPU tensor it
-runs `pack_plain`. Output: (S, out_width) int32 holding u16 values,
-zero past each stream's end.
+On a CUDA tensor `pack` launches `csrc/packroute.cu` (one launch: a
+thread-block cluster per stream); on a CPU tensor it runs `pack_plain`.
+Output: (S, out_width) int32 holding u16 values, zero past each
+stream's end.
 """
 
 from __future__ import annotations
@@ -24,7 +25,13 @@ import torch
 from density_tpu_torch.kernels import _build
 
 GQ = 16384  # quads per routing group of the TPU kernel
+MAX_K = 32  # the kernel's most clusters per stream
 launches = 0  # kernel launches through `pack` (see chip_smoke.py)
+# The kernel's clusters trade their totals through device words tagged
+# with the call's epoch: one buffer per (device, CUDA stream), which only
+# the kernel writes, and a counter that never repeats an epoch on it.
+_tagged: dict = {}
+_epoch = 0
 
 
 def out_width(N: int, q: int, sig_words: int) -> int:
@@ -59,25 +66,41 @@ def check_args(flags, pw, w0, w1, nbytes, q):
 
 
 def pack(flags, pw, w0, w1, nbytes, *, q, sig_words, block, flag_bits):
-    """Assemble S block streams; see the module docstring."""
-    global launches
+    """Assemble S block streams; see the module docstring. The CUDA
+    kernel takes N a multiple of 16384 (the planner's streams of 65536
+    bytes and more) and q 16, 32 or 64, and needs pw = 0 past each
+    stream's real blocks, as the planner leaves it."""
+    global launches, _epoch
     check_args(flags, pw, w0, w1, nbytes, q)
     if flags.device.type != "cuda":
         return pack_plain(flags, pw, w0, w1, nbytes, q=q,
                           sig_words=sig_words, block=block,
                           flag_bits=flag_bits)
     S, N = flags.shape
+    if N % GQ:
+        raise ValueError(f"N={N} is not a multiple of {GQ}")
     ow = out_width(N, q, sig_words)
-    args = [a.to(torch.int32).contiguous()
-            for a in (flags, pw, w0, w1, nbytes)]
+    args = []
+    for a in (flags, pw, w0, w1, nbytes):
+        a = a.to(torch.int32).contiguous()
+        # the kernel reads rows in 16-byte vectors
+        args.append(a.clone() if a.data_ptr() % 16 else a)
     out = torch.empty((S, ow), dtype=torch.int32, device=flags.device)
-    scratch = torch.empty(2 * S * (N // q) + S, dtype=torch.int32,
-                          device=flags.device)
-    fn = _build.function("packroute", "packroute", 15,
-                         tuple(range(7, 14)))
+    stream = _build.stream_ptr(flags.device)
+    _epoch = _epoch % (2**31 - 1) + 1
+    if _epoch == 1:  # the first call, or the counter wrapped
+        _tagged.clear()
+    key = (flags.device.index, stream.value)
+    tagged = _tagged.get(key)
+    if tagged is None or tagged.numel() < MAX_K * S:
+        # zeros carry epoch 0, which no call uses
+        tagged = torch.zeros(MAX_K * max(S, 64), dtype=torch.int64,
+                             device=flags.device)
+        _tagged[key] = tagged
+    fn = _build.function("packroute", "packroute", 16, tuple(range(7, 15)))
     rc = fn(*[_build.ptr(a) for a in args], _build.ptr(out),
-            _build.ptr(scratch), S, N, q, sig_words, flag_bits, block, ow,
-            _build.stream_ptr(flags.device))
+            _build.ptr(tagged), S, N, q, sig_words, flag_bits, block, ow,
+            _epoch, stream)
     _build.check(rc, "packroute")
     launches += 1
     return out

@@ -14,10 +14,14 @@ block streams become per-quad (flags, w0, w1) lattices.
 
 w1 of a 1-word token is the word after its payload; only 2-word tokens
 read it. Every read is bounds-checked against W (a word past W reads
-0); a live block that starts outside the words raises DecodeError.
+0); a live block that starts outside the words is malformed: its
+outputs are zeros and the error flag is set.
 
-On a CUDA tensor `unpack` launches `csrc/unpack.cu`; on a CPU tensor it
-runs `unpack_plain`.
+`unpack` raises DecodeError on that flag at once (on the card this reads
+the flag back, a host sync). `unpack_flagged` returns the flag as a
+one-element device tensor instead, for a caller that reads it later in
+the same host copy as its other results. On a CUDA tensor both launch
+`csrc/unpack.cu`; on a CPU tensor they run the plain version.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 from density_tpu_torch.errors import DecodeError
 from density_tpu_torch.kernels import _build
 
-launches = 0  # kernel launches through `unpack` (see chip_smoke.py)
+launches = 0  # kernel launches of both entry points (see chip_smoke.py)
 
 
 def flag_payload_words(flags: torch.Tensor, flag_bits: int):
@@ -52,45 +56,77 @@ def _check_args(words, woff, is_copy, q, sig_words, flag_bits):
                          f"flag_bits={flag_bits}")
 
 
-def _malformed():
+def malformed() -> DecodeError:
     return DecodeError("malformed block offset: a live block starts "
                        "outside the compressed words")
 
 
 def unpack(words, woff, is_copy=None, *, q, sig_words, flag_bits):
-    """Returns (flags, w0, w1), each (S, NB * q) int32.
+    """Returns (flags, w0, w1), each (S, NB * q) int32; raises
+    DecodeError if a live block is malformed.
 
     words: (S, W) u16 values (any integer dtype); woff: (S, NB) int32
     block word offsets, < 0 for dead blocks; is_copy: (S, NB) bool or
     None."""
-    global launches
     _check_args(words, woff, is_copy, q, sig_words, flag_bits)
     if words.device.type != "cuda":
         return unpack_plain(words, woff, is_copy, q=q, sig_words=sig_words,
                             flag_bits=flag_bits)
+    flags, w0, w1, bad = _launch(words, woff, is_copy, q, sig_words,
+                                 flag_bits)
+    if int(bad.item()) != 0:
+        raise malformed()
+    return flags, w0, w1
+
+
+def unpack_flagged(words, woff, is_copy=None, *, q, sig_words, flag_bits):
+    """As `unpack`, but returns (flags, w0, w1, bad) and never reads the
+    device: bad is a one-element int32 tensor, nonzero where a live block
+    was malformed (its outputs are then zeros)."""
+    _check_args(words, woff, is_copy, q, sig_words, flag_bits)
+    if words.device.type != "cuda":
+        return _plain(words, woff, is_copy, q, sig_words, flag_bits)
+    return _launch(words, woff, is_copy, q, sig_words, flag_bits)
+
+
+def _launch(words, woff, is_copy, q, sig_words, flag_bits):
+    global launches
     S, W = words.shape
     NB = woff.shape[1]
     dev = words.device
     wd = words.to(torch.int32).contiguous()
     wo = woff.to(torch.int32).contiguous()
-    cp = None if is_copy is None else is_copy.to(torch.uint8).contiguous()
+    cp = None
+    if is_copy is not None:  # bool is a byte of 0 or 1: reinterpreted
+        cp = is_copy.contiguous()
+        cp = cp.view(torch.uint8) if cp.dtype == torch.bool else cp.to(
+            torch.uint8)
     outs = torch.empty((3, S, NB * q), dtype=torch.int32, device=dev)
-    err = torch.empty(1, dtype=torch.int32, device=dev)
+    bad = torch.empty(1, dtype=torch.int32, device=dev)
     fn = _build.function("unpack", "unpack", 14, tuple(range(7, 13)))
     rc = fn(_build.ptr(wd), _build.ptr(wo), _build.ptr(cp),
             _build.ptr(outs[0]), _build.ptr(outs[1]), _build.ptr(outs[2]),
-            _build.ptr(err), S, NB, W, q, sig_words, flag_bits,
+            _build.ptr(bad), S, NB, W, q, sig_words, flag_bits,
             _build.stream_ptr(dev))
     _build.check(rc, "unpack")
     launches += 1
-    if int(err.item()) != 0:
-        raise _malformed()
-    return outs[0], outs[1], outs[2]
+    return outs[0], outs[1], outs[2], bad
 
 
 def unpack_plain(words, woff, is_copy=None, *, q, sig_words, flag_bits):
-    """The kernel's arithmetic in plain PyTorch (bounds-checked gathers)."""
+    """The kernel's arithmetic in plain PyTorch (bounds-checked gathers);
+    raises DecodeError if a live block is malformed."""
     _check_args(words, woff, is_copy, q, sig_words, flag_bits)
+    flags, w0, w1, bad = _plain(words, woff, is_copy, q, sig_words,
+                                flag_bits)
+    if int(bad.item()) != 0:
+        raise malformed()
+    return flags, w0, w1
+
+
+def _plain(words, woff, is_copy, q, sig_words, flag_bits):
+    """(flags, w0, w1, bad): a malformed live block gives zeros, as a
+    dead one does, and sets bad."""
     S, W = words.shape
     NB = woff.shape[1]
     dev = words.device
@@ -98,10 +134,9 @@ def unpack_plain(words, woff, is_copy=None, *, q, sig_words, flag_bits):
     woff = woff.to(torch.int64)
     cp = (torch.zeros_like(woff, dtype=torch.bool) if is_copy is None
           else is_copy.to(torch.bool))
+    bad = (woff >= 0) & ((woff >= W) | (~cp & (woff > W - sig_words)))
+    woff = torch.where(bad, -1, woff)
     dead = woff < 0
-    bad = ~dead & ((woff >= W) | (~cp & (woff > W - sig_words)))
-    if bool(bad.any()):
-        raise _malformed()
 
     def rd(pos):
         ok = (pos >= 0) & (pos < W)
@@ -130,4 +165,5 @@ def unpack_plain(words, woff, is_copy=None, *, q, sig_words, flag_bits):
     dq = dead[:, :, None].expand(S, NB, q).reshape(S, -1)
     flags, w0, w1 = (torch.where(dq, 0, x).to(torch.int32)
                      for x in (flags, w0, w1))
-    return flags, w0, w1
+    bad_any = bad.any().to(torch.int32).reshape(1)
+    return flags, w0, w1, bad_any

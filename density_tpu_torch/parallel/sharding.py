@@ -5,7 +5,9 @@ one device. Streams form the leading (batch) axis of every tensor; the
 full streams run as one batch and the ragged final stream as its own
 batch at a capacity bucketed to its length. Encode and decode both run
 on the device; the host stages bytes, scans block offsets before decode
-and stamps the ragged-tail bytes after it.
+(checking each stream's decoded length against the one it was given)
+and, after it, reads the words and unpack's malformed-block flag in one
+copy and stamps the ragged-tail bytes.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from density_tpu_torch.container import (
     build_header, parse_header, split_streams)
 from density_tpu_torch.engine import layout, unlayout
 from density_tpu_torch.errors import DecodeError
+from density_tpu_torch.kernels import unpack
 from density_tpu_torch.parallel.mesh import resolve_device
 
 BLOCK = SPEC.block_size
@@ -100,53 +103,73 @@ def compress(data: bytes, codec: str, stream_size: int, device=None) -> bytes:
 # ---------------------------------------------------------------------------
 
 def _stage_decode(streams, out_lens, dev):
-    """Scan every stream on the host and stage the device inputs:
-    (words, woff, is_copy, nb_real, out_len) and the host copy flags.
-    The capacities follow the data (the longest compressed stream, the
-    longest decoded one, its quads padded as encode pads them), not the
-    container's stream size, so a small input costs a small decode."""
+    """Scan every stream on the host, check each against its decoded
+    length, and stage the device inputs: (words, woff, is_copy, nb_real,
+    out_len) and the host copy flags. A stream of decoded length 0 is
+    neither scanned nor staged, as the reference's pool skips it; every
+    other stream must decode to exactly its length, else DecodeError is
+    raised before anything reaches the device. The capacities follow
+    the data (the longest compressed stream, the longest decoded one,
+    its quads padded as encode pads them), not the container's stream
+    size, so a small input costs a small decode."""
     S = len(streams)
     Q = SPEC.quads_per_block
     for stream, out_len in zip(streams, out_lens):
         # the densest token (a map) turns 2 stored bytes into 4
         if out_len > 2 * len(stream):
             raise DecodeError("stream too short for its decoded length")
-    cap_words = (max(len(s) for s in streams) + 1) // 2
+    live = [s for s in range(S) if out_lens[s] > 0]
+    cap_words = (max(len(streams[s]) for s in live) + 1) // 2
     nb_cap = layout.pad_quads(-(-int(max(out_lens)) // BLOCK) * Q) // Q
     words = np.zeros((S, cap_words), dtype=np.int32)
     woff = np.zeros((S, nb_cap), dtype=np.int32)
     copyf = np.zeros((S, nb_cap), dtype=bool)
     nb_real = np.zeros(S, dtype=np.int32)
-    live = [s for s in range(S) if streams[s]]
-    if live:
-        bio, _, bcp, nbs, _, _ = host_scan.scan_many(
-            [streams[s] for s in live], nb_cap)
-        for j, s in enumerate(live):
-            nb = int(nbs[j])
-            nb_real[s] = nb
-            woff[s, :nb] = bio[j, :nb] // 2
-            copyf[s, :nb] = bcp[j, :nb].astype(bool)
-            raw = np.frombuffer(streams[s], dtype=np.uint8)
-            u16 = np.zeros(2 * cap_words, np.uint8)
-            u16[:raw.size] = raw
-            words[s] = u16.view("<u2")
+    bio, boo, bcp, nbs, _, _ = host_scan.scan_many(
+        [streams[s] for s in live], nb_cap)
+    for j, s in enumerate(live):
+        nb = int(nbs[j])
+        got = host_scan.decoded_length(streams[s], bio[j, :nb], boo[j, :nb],
+                                       bcp[j, :nb])
+        if got != out_lens[s]:
+            raise DecodeError(f"stream {s} decodes to {got} bytes, its "
+                              f"length is {int(out_lens[s])}")
+        nb_real[s] = nb
+        woff[s, :nb] = bio[j, :nb] // 2
+        copyf[s, :nb] = bcp[j, :nb].astype(bool)
+        raw = np.frombuffer(streams[s], dtype=np.uint8)
+        u16 = np.zeros(2 * cap_words, np.uint8)
+        u16[:raw.size] = raw
+        words[s] = u16.view("<u2")
     args = tuple(torch.from_numpy(a).to(dev) for a in (
         words, woff, copyf, nb_real, np.asarray(out_lens, np.int32)))
     return args, copyf, nb_real
 
 
-def decode_batch(words, woff, is_copy, nb_real, out_len) -> torch.Tensor:
-    """Device decode of staged streams: (S, NB * 128) int32 halfwords."""
+def decode_batch(words, woff, is_copy, nb_real, out_len):
+    """Device decode of staged streams: (S, NB * 128) int32 halfwords and
+    the one-element malformed-block flag, both left on the device (no
+    host sync)."""
     return unlayout.decode_chameleon_batch(words, woff, is_copy, nb_real,
                                            out_len)
 
 
-def _finish(out_words, streams, out_lens, copyf, nb_real) -> list[bytes]:
+def _finish(out_words, bad, streams, out_lens, copyf, nb_real) -> list[bytes]:
     """Device halfwords -> per-stream bytes, ragged tails stamped from the
-    compressed streams' last bytes (they are stored raw)."""
+    compressed streams' last bytes (they are stored raw). The halfwords
+    and the malformed-block flag come back in one host copy; a set flag
+    raises DecodeError before any bytes are returned."""
+    S = out_words.shape[0]
     max_words = (int(max(out_lens, default=0)) + 1) // 2
-    out_np = out_words[:, :max_words].to(torch.int16).cpu().numpy().view(
-        "<u2")
+    host = torch.empty(S * max_words + 1, dtype=torch.int16,
+                       device=out_words.device)
+    # u16 values in int32 -> int16 (two's complement) -> u16 on the host
+    host[:-1].view(S, max_words).copy_(out_words[:, :max_words])
+    host[-1:].copy_(bad.reshape(1))
+    host = host.cpu().numpy()
+    if host[-1]:
+        raise unpack.malformed()
+    out_np = host[:-1].view("<u2").reshape(S, max_words)
     parts = []
     for s, stream in enumerate(streams):
         ol = int(out_lens[s])
@@ -186,7 +209,8 @@ def decompress(data: bytes, device=None) -> bytes:
         return b""
     args, streams, (original_len, out_lens, copyf, nb_real) = decode_prep(
         data, device)
-    parts = _finish(decode_batch(*args), streams, out_lens, copyf, nb_real)
+    parts = _finish(*decode_batch(*args), streams, out_lens, copyf,
+                    nb_real)
     out = b"".join(parts)
     if len(out) != original_len:
         raise DecodeError(f"decoded {len(out)} bytes, expected {original_len}")
@@ -208,4 +232,5 @@ def decode_streams(streams, out_lens=None, device=None) -> list[bytes]:
     if not any(out_lens):
         return [b""] * len(streams)
     args, copyf, nb_real = _stage_decode(streams, out_lens, dev)
-    return _finish(decode_batch(*args), streams, out_lens, copyf, nb_real)
+    return _finish(*decode_batch(*args), streams, out_lens, copyf,
+                   nb_real)

@@ -123,24 +123,28 @@ def test_bigsort_launches_per_sort(cuda, S, N, n_arr, want):
     assert _traced_launches(lambda: bigsort.sort(*arrs, n_keys=1)) == 3 * want
 
 
-def _traced_launches(fn, calls=3, sessions=3):
-    """The sort kernels' launches in `calls` calls of `fn`, as the
-    profiler's trace counts them: the most of `sessions` sessions, since
-    a session now and then drops an event (seen on the H100) but never
-    adds one."""
+def _traced_launches(fn, calls=3, sessions=3,
+                     names=("tile_kernel", "cluster_kernel",
+                            "global_kernel")):
+    """The launches of the kernels named `names` in `calls` calls of
+    `fn`, as the profiler's trace counts them: the most of `sessions`
+    sessions, since a session now and then drops an event (seen on the
+    H100) but never adds one. A small kernel after the calls, inside the
+    window, keeps the calls' own kernels from being its last events."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    tail = torch.zeros(1, device="cuda")
     counts = []
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
+            tail.add_(1)
             torch.cuda.synchronize()
         counts.append(sum(
             e.count for e in prof.key_averages()
-            if any(name in e.key for name in
-                   ("tile_kernel", "cluster_kernel", "global_kernel"))))
+            if any(name in e.key for name in names)))
     return max(counts)
 
 
@@ -161,6 +165,54 @@ def test_pack_matches_plain(cuda, tail):
     want = packroute.pack_plain(*(x.cpu() for x in (flags, pw, w0, w1,
                                                     nbytes)), **kw)
     assert torch.equal(got.cpu(), want)
+
+
+# (N, S): rows of one cluster of 2, 4 and 8 CTAs, longer spans, and one
+# stream of the default 32 MiB
+PACKROUTE_SHAPES = [(16384, 12), (65536, 12), (1 << 18, 8), (1 << 23, 1)]
+
+
+@pytest.mark.parametrize("q,sig_words,flag_bits", [
+    (64, 4, 1), (32, 4, 2), (16, 3, 3)])
+@pytest.mark.parametrize("N,S", PACKROUTE_SHAPES)
+def test_packroute_geometries_match_plain(cuda, N, S, q, sig_words,
+                                          flag_bits):
+    """Ragged tails of 0-3 bytes, streams that end inside a block,
+    padding blocks beyond them, a zero-length stream, and random tokens
+    at each geometry."""
+    rng = np.random.default_rng(N + q + S)
+    full = 4 * N
+    nbytes = np.array([full, full - 1, full - 2, full - 3, 1000, 0,
+                       full // 3 + 1, 4 * q * 5, 13, full - 4 * q - 2,
+                       full // 2, 2 * q + 3][:S], np.int32)
+    tokens = _geometry_tokens(rng, S, N, q, flag_bits, nbytes)
+    kw = dict(q=q, sig_words=sig_words, block=4 * q, flag_bits=flag_bits)
+    args = [x.to(cuda) for x in tokens] + [torch.from_numpy(nbytes).to(cuda)]
+    got = packroute.pack(*args, **kw)
+    torch.cuda.synchronize()
+    # the plain version on the card: the same arithmetic, faster than the
+    # CPU at these sizes
+    assert torch.equal(got, packroute.pack_plain(*args, **kw))
+
+
+def test_packroute_one_launch(cuda):
+    """One kernel launch per call, and no memset, in the profiler's
+    trace."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(9)
+    nbytes = np.full(38, 4 * 65536, np.int32)
+    args = [x.to(cuda) for x in _geometry_tokens(rng, 38, 65536, 64, 1,
+                                                 nbytes)]
+    args.append(torch.from_numpy(nbytes).to(cuda))
+    kw = dict(q=64, sig_words=4, block=256, flag_bits=1)
+    fn = lambda: packroute.pack(*args, **kw)  # noqa: E731
+    assert _traced_launches(fn, names=("packroute_kernel",)) == 3
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    assert not any("Memset" in e.key for e in prof.key_averages())
 
 
 @pytest.mark.parametrize("S,N,n_keys,n_arr", [
@@ -252,6 +304,91 @@ def test_unpack_matches_plain_and_rejects_bad_offsets(cuda):
         unpack.unpack(words.to(cuda), bad.to(cuda), is_copy.to(cuda), **CHAM)
 
 
+def _geometry_blocks(rng, S, NB, q, sig_words):
+    """Random words with back-to-back block offsets (each block a random
+    length up to its largest), a tenth of the blocks copy blocks, a
+    tenth dead, and the last block of each stream running past W (its
+    reads past the words give 0)."""
+    span = sig_words + 2 * q
+    lens = rng.integers(sig_words, span + 1, (S, NB))
+    woff = (np.cumsum(lens, axis=1) - lens).astype(np.int32)
+    is_copy = rng.random((S, NB)) < 0.1
+    woff[rng.random((S, NB)) < 0.1] = -1
+    W = int(woff.max()) + sig_words + 5
+    words = rng.integers(0, 1 << 16, (S, W)).astype(np.int32)
+    words |= rng.integers(0, 2, (S, W)).astype(np.int32) << 20  # high junk
+    return (torch.from_numpy(words), torch.from_numpy(woff),
+            torch.from_numpy(is_copy))
+
+
+@pytest.mark.parametrize("q,sig_words,flag_bits,NB", [
+    (64, 4, 1, 1024), (64, 4, 1, 24), (32, 4, 2, 512), (16, 3, 3, 1024),
+    (16, 3, 3, 70)])
+def test_unpack_geometries_match_plain(cuda, q, sig_words, flag_bits, NB):
+    """flag_bits 1-3 with copy, dead and ragged blocks and tiles cut by
+    NB; then a malformed block, whose outputs are zeros beside the flag
+    in `unpack_flagged` and which `unpack` raises."""
+    rng = np.random.default_rng(q * NB + flag_bits)
+    words, woff, is_copy = _geometry_blocks(rng, 5, NB, q, sig_words)
+    kw = dict(q=q, sig_words=sig_words, flag_bits=flag_bits)
+    args = [x.to(cuda) for x in (words, woff, is_copy)]
+    got = unpack.unpack(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, unpack.unpack_plain(words, woff, is_copy, **kw)):
+        assert torch.equal(g.cpu(), w)
+    woff[2, NB // 2] = words.shape[1] - sig_words + 1
+    is_copy[2, NB // 2] = False
+    args = [x.to(cuda) for x in (words, woff, is_copy)]
+    *got, bad = unpack.unpack_flagged(*args, **kw)
+    *want, wbad = unpack._plain(words, woff, is_copy, q, sig_words,
+                                flag_bits)
+    assert int(bad.cpu()[0]) == 1 and int(wbad[0]) == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    with pytest.raises(DecodeError):
+        unpack.unpack(*args, **kw)
+
+
+def test_unpack_one_launch(cuda):
+    """One kernel launch per call in the profiler's trace."""
+    rng = np.random.default_rng(8)
+    args = [x.to(cuda) for x in _geometry_blocks(rng, 38, 1024, 64, 4)]
+    assert _traced_launches(lambda: unpack.unpack_flagged(*args, **CHAM),
+                            names=("unpack_kernel",)) == 3
+
+
+def test_malformed_raises_in_finish_without_a_host_sync(cuda, monkeypatch):
+    """A malformed block offset (the scan is rewritten: no valid stream
+    makes one) raises DecodeError through `sharding.decompress`, from
+    the flag read with the words in `_finish`; the device decode before
+    it makes no host sync (CUDA's sync debug mode would raise)."""
+    from density_tpu_torch import host_scan
+    from density_tpu_torch.parallel import sharding
+    blob = container.compress(_data(6, 3 * 65536 + 11), "chameleon", 65536,
+                              device=cuda)
+    scan = host_scan.scan_many
+
+    def bad_scan(streams, max_blocks):
+        bio, *rest = scan(streams, max_blocks)
+        bio[1, 3] = 2 * (max(len(s) for s in streams) + 100)
+        return (bio, *rest)
+
+    decode = sharding.decode_batch
+
+    def no_sync_decode(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return decode(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(sharding, "decode_batch", no_sync_decode)
+    assert container.decompress(blob, device=cuda) == _data(6, 3 * 65536 + 11)
+    monkeypatch.setattr(host_scan, "scan_many", bad_scan)
+    with pytest.raises(DecodeError, match="malformed"):
+        container.decompress(blob, device=cuda)
+
+
 def test_unpack_at_4096_quads(cuda):
     """NB * 64 = 4096, the smallest decode capacity: the kernel has no
     16384-quad grouping and serves it as it is."""
@@ -282,6 +419,23 @@ def test_container_on_card_equals_cpu(cuda, n, stream):
     assert container.decompress(blob, device=cuda) == data
     if stream < 65536:
         assert pack.launches > before
+
+
+@pytest.mark.parametrize("stream,n", [
+    (1 << 20, 2 * (1 << 20) + 12345), (32 << 20, 17 * (1 << 20) + 3)])
+def test_large_stream_containers_on_card(cuda, stream, n):
+    """Streams of 2^18 quads (1 MiB) and the default 32 MiB stream (a
+    17 MiB input: one stream of 2^23 quads): the round trip on the card,
+    and a 2 MiB prefix byte-equal to the CPU path (which keeps the CPU
+    side at 2^19 quads)."""
+    data = _data(n, n)
+    before = packroute.launches
+    blob = container.compress(data, "chameleon", stream, device=cuda)
+    assert packroute.launches > before
+    assert container.decompress(blob, device=cuda) == data
+    prefix = data[:2 << 20]
+    assert container.compress(prefix, "chameleon", stream, device=cuda) == (
+        container.compress(prefix, "chameleon", stream, device="cpu"))
 
 
 def test_options_on_card_give_default_containers(cuda, monkeypatch):
