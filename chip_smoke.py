@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`density_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py [--out DIR] [--seed N]
 
-Needs one CUDA card and `nvcc`; imports no JAX. Phases:
-  (a) build the five CUDA kernels from `density_tpu_torch/csrc/`;
+Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
+  (a) build the five CUDA kernels from `density_tpu_torch/csrc/` and the
+      native host runtime from `density_tpu_torch/native/`;
   (b) hold each kernel against its plain PyTorch version on the card,
       bit for bit, at the shapes of the paths below (and a
       malformed-offset case that must raise DecodeError); packroute also
@@ -13,6 +14,10 @@ Needs one CUDA card and `nvcc`; imports no JAX. Phases:
       on tie-heavy keys at rows of 2^15-2^17, whose merges take global
       launches of 1-4 bits; bitonic also at rows of one CTA, one
       cluster and longer (2^12-2^18, tie-heavy), and equal to bigsort;
+      and all four of cheetah's kernels at its shapes: the resolve's and
+      the planner's 3-array 2-key sorts (S=38 x 65536, one 2^22-quad
+      row), the planner's packed sorts, packroute and pack at q=32,
+      flag_bits=2;
   (c) the main path: chameleon compress and decompress on the card of a
       10,192,446-byte text corpus in 256 KiB streams, with every
       kernel's launch count read around it; stream bytes held against
@@ -31,7 +36,10 @@ Needs one CUDA card and `nvcc`; imports no JAX. Phases:
       kernel launches per call); one profiler trace each of encode and
       decode at 256 KiB and 32 KiB; the host syncs of one decode; the
       encode with the default sort and under DENSITY_TPU_SORT=bitonic,
-      in turns;
+      in turns; the 3-array 2-key sorts of (b) against `torch.sort` of
+      the packed int64 keys and a gather; cheetah's device-resident
+      encode (corpus, 256 KiB) and decode (phase l's input), the host
+      pool's decode of the corpus, their host syncs and traces;
   (g) small streams: the corpus in 32 KiB and 16 KiB streams (4096- and
       8192-quad shapes, the pack kernel), compress and decompress on the
       card with launch counts, three streams of each held against the
@@ -44,7 +52,21 @@ Needs one CUDA card and `nvcc`; imports no JAX. Phases:
   (j) large streams: the corpus in 1 MiB streams (2^18 quads) and in
       the default 32 MiB stream (one stream of 2^22 quads), compress
       and decompress on the card with launch counts, held against the
-      CPU path on a stream or a 2 MiB prefix.
+      CPU path on a stream or a 2 MiB prefix;
+  (k) cheetah's main path: the corpus in 256 KiB streams compressed on
+      the card with launch counts, every stream against the native
+      encoder and three against the CPU path; decompress by its route
+      (the predicted share is printed);
+  (l) cheetah's device decode where the fixpoint converges: 38 x 256
+      KiB of quads drawn from 1024 values made from `--seed`, decoded
+      on the card with every stream converged;
+  (m) the device decode of the corpus's streams at 12 rounds (how many
+      converge), then three streams with the cap raised until they do;
+  (n) cheetah in 16 KiB streams (pack) and the default 32 MiB stream
+      (the planner's 3-array sorts), against the native encoder, round
+      trip, byte-identical under DENSITY_TPU_SORT=bitonic;
+  (o) cheetah on random and mixed inputs (fixed point, copy blocks,
+      ragged lengths) decoded on both routes, and one-shot streams.
 Prints the card's name and power limit, a `kernels` JSON line and, last,
 the device JSON line. Any failure exits non-zero. Writes the compiler's
 register report to `DIR/ptxas.txt` and the profiles to
@@ -82,6 +104,7 @@ REPLACES = {
     "bitonic": "density_tpu/kernels/bitonic.py:121",
 }
 CHAM = dict(q=64, sig_words=4, block=256, flag_bits=1)
+CHEE = dict(q=32, sig_words=4, block=128, flag_bits=2)
 
 
 def log(*a):
@@ -284,11 +307,19 @@ def host_syncs(fn) -> int:
 # ---------------------------------------------------------------- phases
 
 def phase_build() -> None:
+    from density_tpu_torch import native
     from density_tpu_torch.kernels import _build
+    from density_tpu_torch.native import build as native_build
     t = time.time()
     logs = _build.build()
     log(f"(a) built {sorted(logs) or 'nothing (cached)'} "
         f"in {time.time() - t:.1f} s")
+    t = time.time()
+    if not native.is_available():
+        raise AssertionError(f"the native runtime did not build: "
+                             f"{native._load_error}")
+    log(f"(a) native host runtime {native_build.lib_path().name} ready in "
+        f"{time.time() - t:.1f} s")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
         for name, text in logs.items():
@@ -996,12 +1027,383 @@ def phase_profile(fns) -> None:
                 f"{k[:48]} x{c} {ms:.3f} ms" for k, c, ms in rows[:5]))
 
 
+# ---------------------------------------------------------------- cheetah
+
+def stream_chunks(data: bytes, stream: int) -> list[bytes]:
+    return [data[i:i + stream] for i in range(0, len(data), stream)]
+
+
+def alphabet_input(seed: int) -> bytes:
+    """38 x 256 KiB of quads drawn i.i.d. from 1024 seeded values (top
+    bits included): map tokens are common, predictions rare."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, 1 << 32, 1024, dtype=np.uint64).astype(np.uint32)
+    return vals[rng.integers(0, 1024, 38 * STREAM // 4)].tobytes()
+
+
+def cheetah_inputs(dev, data: bytes, stream: int = STREAM):
+    """The cheetah path's inputs at `stream`-byte streams: staged encode
+    quads and nbytes of the full streams, the plan the path hands its
+    pack kernel (three streams ending ragged), the container, and its
+    staged decode inputs."""
+    import torch
+    from density_tpu_torch import container
+    from density_tpu_torch.codecs import cheetah
+    from density_tpu_torch.engine import layout
+    from density_tpu_torch.parallel import sharding
+    s_full = len(data) // stream
+    buf = np.frombuffer(data, np.uint8)
+    quads, nbytes = sharding.stage_encode(
+        buf[:s_full * stream], s_full * stream, s_full,
+        layout.bucket_bytes(stream, 128), stream, dev)
+    nb_rag = nbytes.clone()
+    nb_rag[1:4] -= torch.tensor([1, 3, 555], dtype=torch.int32, device=dev)
+    flags, pw, w0, w1, _, _ = cheetah.plan_fast(quads, nb_rag)
+    w0, w1 = layout.stamp_ragged(quads, nb_rag, w0, w1)
+    blob = container.compress(data[:s_full * stream], "cheetah", stream,
+                              device=dev)
+    dargs, streams, meta = sharding.decode_prep(blob, dev)
+    return dict(quads=quads, nbytes=nbytes,
+                pack_in=(flags, pw, w0, w1, nb_rag), blob=blob, dargs=dargs,
+                streams=streams, meta=meta)
+
+
+def resolve_sort_inputs(dargs):
+    """The resolve's dictionary sort operands (key, index|op|flag, plain
+    quad: 3 arrays, 2 keys) of staged cheetah streams, as
+    `cheetah.resolve` builds them."""
+    import torch
+    from density_tpu_torch.codecs import cheetah
+    from density_tpu_torch.engine.grouping import hash_quads
+    flags, w0, w1, valid = cheetah.extract_tokens(*dargs)
+    S, N = flags.shape
+    lidx = torch.arange(N, dtype=torch.int32, device=flags.device)[None, :]
+    plain_quad = w0 | (w1 << 16)
+    nonpred = valid & (flags != 3)
+    is_plain = valid & (flags == 0)
+    key = torch.where(nonpred, torch.where(is_plain, hash_quads(plain_quad),
+                                           w0), 1 << 16)
+    op = torch.where(is_plain, 2, torch.where((flags == 2) & nonpred, 1, 0))
+    k2 = (lidx << 4) | (op.to(torch.int32) << 2) | (flags & 3)
+    return key.contiguous(), k2.contiguous(), plain_quad.contiguous()
+
+
+def planner_sort_inputs(quads):
+    """The planner's forward sort operands above 65536 quads (context,
+    index, fingerprint: 3 arrays, 2 keys), as `cheetah.plan_fast` builds
+    them."""
+    import torch
+    from density_tpu_torch.codecs import cheetah
+    from density_tpu_torch.engine.grouping import hash_quads, shift_right
+    S, N = quads.shape
+    lidx = torch.arange(N, dtype=torch.int32, device=quads.device)
+    return (shift_right(hash_quads(quads), 0).contiguous(),
+            lidx.expand(S, N).contiguous(), cheetah.sig32(quads))
+
+
+def parity_cheetah(dev, chee, chee_small, large_quads):
+    """bigsort, bitonic, packroute and pack against their plain versions
+    at cheetah's shapes: the resolve's 3-array 2-key sort and the
+    planner's (2^22 quads), the planner's packed sorts, its unsort, and
+    the plans at q=32, flag_bits=2. Returns the largest error of each."""
+    import torch
+    from density_tpu_torch.codecs import cheetah
+    from density_tpu_torch.engine.grouping import hash_quads, shift_right
+    from density_tpu_torch.kernels import bigsort, bitonic, pack, packroute
+    errs = {}
+    res = resolve_sort_inputs(chee["dargs"])
+    big = planner_sort_inputs(large_quads)
+    q = chee["quads"]
+    S, N = q.shape
+    lidx = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
+    # the planner's first packed sort at N <= 65536: biased (context <<
+    # 16 | index) and the fingerprint
+    fwd = (((shift_right(hash_quads(q), 0) << 16) | lidx) ^ (-2**31),
+           cheetah.sig32(q))
+    sorts = [(res, 2), ((res[2], res[1]), 1), (big, 2), (fwd, 1),
+             ((res[1],), 1)]
+    for name, mod in (("bigsort", bigsort), ("bitonic", bitonic)):
+        err = 0
+        for arrs, nk in sorts:
+            got = mod.sort(*arrs, n_keys=nk)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, mod.sort_plain(*arrs, n_keys=nk)))
+            if name == "bitonic" and max_abs_err(
+                    got, bigsort.sort(*arrs, n_keys=nk)):
+                raise AssertionError("bitonic differs from bigsort")
+        errs[name] = err
+        log(f"(b) {name} at cheetah's shapes: resolve S={S} N={N} 3 arrays "
+            f"2 keys, planner S=1 N={big[0].shape[1]} 3 arrays 2 keys, "
+            f"planner packed sorts and unsort, max_abs_err {err}")
+    for name, mod, inputs in (("packroute", packroute, chee),
+                              ("pack", pack, chee_small)):
+        args = inputs["pack_in"]
+        got = mod.pack(*args, **CHEE)
+        torch.cuda.synchronize()
+        errs[name] = e = max_abs_err(got, mod.pack_plain(*args, **CHEE))
+        log(f"(b) {name} at cheetah's geometry: S={args[0].shape[0]} "
+            f"N={args[0].shape[1]} (tails 1/3/555), max_abs_err {e}")
+    return errs
+
+
+def phase_cheetah_main(dev, data: bytes):
+    """(k) The corpus in 256 KiB streams, cheetah on the card, counted;
+    every stream against the native encoder, three against the CPU
+    path; decompress by the container's route."""
+    from density_tpu_torch import container, native
+    from density_tpu_torch.parallel import sharding
+    reset_counts()
+    t = time.time()
+    blob = container.compress(data, "cheetah", STREAM, device=dev)
+    dt = time.time() - t
+    counts = read_counts()
+    parts = payloads(blob)
+    chunks = stream_chunks(data, STREAM)
+    if parts != native.encode_many("cheetah", chunks):
+        raise AssertionError("cheetah streams differ from native.encode")
+    for i in (0, len(parts) // 2, len(parts) - 1):
+        cpu = payloads(container.compress(chunks[i], "cheetah", STREAM,
+                                          device="cpu"))
+        if cpu != [parts[i]]:
+            raise AssertionError(f"cheetah stream {i} differs from the CPU "
+                                 "path")
+    _, streams, meta = sharding.decode_prep(blob, dev)
+    t = time.time()
+    back = container.decompress(blob, device=dev)
+    dt_dec = time.time() - t
+    if back != data:
+        raise AssertionError("cheetah round trip differs from the input")
+    log(f"(k) cheetah main path: {len(data)} bytes in {len(parts)} streams "
+        f"-> {len(blob)} bytes (ratio {len(data) / len(blob):.4f}) in "
+        f"{dt:.2f} s host wall; every stream equals native.encode, streams "
+        f"0/{len(parts) // 2}/{len(parts) - 1} the CPU path; decompress "
+        f"route {sharding.route('cheetah', meta[-1])} (predicted share "
+        f"{meta[-1]:.4f}), round trip exact in {dt_dec:.2f} s; launches "
+        f"{counts}")
+    if counts["bigsort"] < 1 or counts["packroute"] < 1:
+        raise AssertionError(f"a kernel of the path was not launched: "
+                             f"{counts}")
+    return counts, blob
+
+
+def phase_cheetah_converging(dev, seed: int):
+    """(l) The device decode where the fixpoint converges: 38 x 256 KiB
+    of seeded alphabet quads."""
+    from density_tpu_torch import container, native
+    from density_tpu_torch.codecs import cheetah
+    from density_tpu_torch.parallel import sharding
+    data = alphabet_input(seed)
+    blob = container.compress(data, "cheetah", STREAM, device=dev)
+    if payloads(blob) != native.encode_many("cheetah",
+                                            stream_chunks(data, STREAM)):
+        raise AssertionError("alphabet streams differ from native.encode")
+    dargs, streams, meta = sharding.decode_prep(blob, dev)
+    share = meta[-1]
+    if sharding.route("cheetah", share) != "device":
+        raise AssertionError(f"predicted share {share} takes the pool")
+    reset_counts()
+    out, ok, rounds = cheetah.decode_batch(*dargs)
+    counts = read_counts()
+    if not bool(ok.all()):
+        raise AssertionError("the resolve did not converge on every stream")
+    got = b"".join(sharding._finish(out, None, ~ok, streams, meta[2],
+                                    meta[3], meta[4], "cheetah"))
+    if got != data or container.decompress(blob, device=dev) != data:
+        raise AssertionError("device decode differs from the input")
+    log(f"(l) alphabet input (seed {seed}): {len(data)} bytes in "
+        f"{len(streams)} streams -> {len(blob)} bytes (ratio "
+        f"{len(data) / len(blob):.4f}), predicted share {share:.6f}, route "
+        f"device; the resolve converged on {int(ok.sum())} of {ok.numel()} "
+        f"streams in {rounds} rounds, bytes exact; decode launches {counts}")
+    return data, blob, dargs
+
+
+def phase_cheetah_corpus_decode(dev, data: bytes, blob: bytes):
+    """(m) The device decode on the corpus's 256 KiB streams at 12 rounds;
+    then three streams with max_rounds raised until they converge."""
+    from density_tpu_torch.codecs import cheetah
+    from density_tpu_torch.parallel import sharding
+    dargs, streams, meta = sharding.decode_prep(blob, dev)
+    t = time.time()
+    _, ok, rounds = cheetah.decode_batch(*dargs)
+    dt = time.time() - t
+    log(f"(m) corpus, {len(streams)} streams of 256 KiB, device decode at "
+        f"12 rounds: {int(ok.sum())} of {ok.numel()} converged ({rounds} "
+        f"rounds, {dt:.3f} s)")
+    pick = [0, len(streams) // 2, len(streams) - 2]  # full streams
+    sub = [streams[i] for i in pick]
+    out_lens = [STREAM] * len(pick)
+    woff, copyf, nb_real, _ = sharding._scan("cheetah", sub, out_lens)
+    sargs = sharding._stage(sub, out_lens, woff, copyf, nb_real, dev)
+    want = [data[i * STREAM:(i + 1) * STREAM] for i in pick]
+    rounds_cap = 12
+    while True:
+        out, ok, rounds = cheetah.decode_batch(*sargs, max_rounds=rounds_cap)
+        if bool(ok.all()) or rounds_cap >= 1 << 14:
+            break
+        rounds_cap *= 2
+    if not bool(ok.all()):
+        raise AssertionError("corpus streams did not converge in 16384 rounds")
+    got = sharding._finish(out, None, ~ok, sub, out_lens, copyf, nb_real,
+                           "cheetah")
+    if got != want:
+        raise AssertionError("converged corpus streams differ from the input")
+    log(f"(m) corpus streams {pick}: converged at max_rounds={rounds_cap} "
+        f"after {rounds} rounds, bytes exact")
+    return int(ok.sum()), rounds
+
+
+def phase_cheetah_sizes(dev, data: bytes):
+    """(n) The corpus in 16 KiB streams (the pack kernel) and in the
+    default 32 MiB stream (the planner's 3-array sorts): compress on the
+    card against the native encoder, round trip, and the same containers
+    under DENSITY_TPU_SORT=bitonic."""
+    from density_tpu_torch import container, native
+    for stream in (SMALL_STREAMS[1], LARGE_STREAMS[1]):
+        reset_counts()
+        t = time.time()
+        blob = container.compress(data, "cheetah", stream, device=dev)
+        dt = time.time() - t
+        counts = read_counts()
+        if payloads(blob) != native.encode_many("cheetah",
+                                                stream_chunks(data, stream)):
+            raise AssertionError(f"{stream}-byte cheetah streams differ from "
+                                 "native.encode")
+        if container.decompress(blob, device=dev) != data:
+            raise AssertionError(f"{stream}-byte cheetah round trip differs")
+        kernel = "pack" if stream < 65536 else "packroute"
+        if counts["bigsort"] < 1 or counts[kernel] < 1:
+            raise AssertionError(f"a kernel was not launched: {counts}")
+        reset_counts()
+        os.environ["DENSITY_TPU_SORT"] = "bitonic"
+        try:
+            other = container.compress(data, "cheetah", stream, device=dev)
+        finally:
+            del os.environ["DENSITY_TPU_SORT"]
+        bcounts = read_counts()
+        if other != blob or bcounts["bitonic"] < 1:
+            raise AssertionError(f"DENSITY_TPU_SORT=bitonic changed the "
+                                 f"{stream}-byte container ({bcounts})")
+        log(f"(n) cheetah {stream}-byte streams: {len(data)} bytes -> "
+            f"{len(blob)} (ratio {len(data) / len(blob):.4f}) in {dt:.2f} s "
+            f"host wall, equal to native.encode, round trip exact, "
+            f"byte-identical under DENSITY_TPU_SORT=bitonic; launches "
+            f"{counts}, under bitonic {bcounts}")
+
+
+def phase_cheetah_edges(dev, rnd: bytes):
+    """(o) Random and mixed inputs (fixed point, copy blocks, ragged
+    lengths) and one-shot streams, against the native encoder; decoded
+    on both routes."""
+    from density_tpu_torch import api, container, native
+    from density_tpu_torch.parallel import sharding
+    rng = np.random.default_rng(2)
+    text = corpus_bytes(1 << 20)
+    mixed = b"".join(text[i:i + 65536] + rng.integers(
+        0, 256, 65536, dtype=np.uint8).tobytes()
+        for i in range(0, 1 << 20, 131072)) + b"xyz"
+    for name, data in (("random", rnd), ("mixed", mixed)):
+        blob = container.compress(data, "cheetah", STREAM, device=dev)
+        parts = payloads(blob)
+        if parts != native.encode_many("cheetah", stream_chunks(data, STREAM)):
+            raise AssertionError(f"{name}: cheetah streams differ")
+        if container.decompress(blob, device=dev) != data:
+            raise AssertionError(f"{name}: round trip differs")
+        if b"".join(sharding.decode_streams(parts, None, dev,
+                                            "cheetah")) != data:
+            raise AssertionError(f"{name}: device decode differs")
+        log(f"(o) cheetah {name}: {len(data)} bytes -> {len(blob)}, equal to "
+            f"native.encode, round trip exact on the container's route and "
+            f"on the device")
+    msgs = [text[7 * n:8 * n] for n in (0, 1, 127, 128, 1000, 16384, 32771)]
+    msgs.append(rnd[:32 << 10])
+    for msg in msgs:
+        enc = api.encode_raw(msg, "cheetah", device=dev)
+        if enc != api.encode_raw(msg, "cheetah", backend="native"):
+            raise AssertionError(f"encode_raw of {len(msg)} bytes differs")
+        if api.decode_raw(enc, "cheetah", device=dev) != msg:
+            raise AssertionError(f"decode_raw of {len(msg)} bytes differs")
+    log(f"(o) cheetah encode_raw/decode_raw on the card: "
+        f"{[len(m) for m in msgs]} bytes, equal to the native backend")
+
+
+def time_sort_3(dev, chee, large_quads) -> None:
+    """bigsort and bitonic at the 3-array 2-key shapes cheetah makes (the
+    resolve at S=38 x 65536, the planner on one 2^22-quad stream), with
+    kernel launches per sort, the bound, and the library call beside
+    them: `torch.sort` of the two keys packed into one int64, then a
+    gather of the carried array."""
+    import torch
+    from density_tpu_torch.kernels import bigsort, bitonic
+    for what, arrs in (("resolve", resolve_sort_inputs(chee["dargs"])),
+                       ("planner", planner_sort_inputs(large_quads))):
+        S, N = arrs[0].shape
+
+        def library():
+            packed = (arrs[0].long() << 32) | (arrs[1].long() + 2**31)
+            _, idx = torch.sort(packed, dim=1)
+            return torch.gather(arrs[2], 1, idx)
+        lib_ms = device_ms(library)
+        for name, mod in (("bigsort", bigsort), ("bitonic", bitonic)):
+            ms, n = device_profile(lambda: mod.sort(*arrs, n_keys=2))
+            log_row(name, dict(
+                ms=ms, plain_ms=None, library_ms=lib_ms,
+                bound=sort_bound(S, N, 3),
+                shape=f"cheetah {what}: S={S} N={N} 2 keys 3 arrays; {n:g} "
+                      "kernel launches per sort in the trace; library = "
+                      "torch.sort of the packed int64 keys + gather"))
+
+
+def time_cheetah(dev, chee, conv_dargs, conv_data, data, blob) -> None:
+    """Device-resident cheetah encode (the corpus at 256 KiB) and decode
+    (the converging input of (l)), the host pool's decode of the corpus,
+    host syncs per call, and one profiler trace of each."""
+    from density_tpu_torch import native
+    from density_tpu_torch.codecs import cheetah
+    from density_tpu_torch.engine import layout
+    from density_tpu_torch.parallel import sharding
+    quads, nbytes = chee["quads"], chee["nbytes"]
+
+    def enc():
+        return layout.run_encode(cheetah.PIPELINE, quads, nbytes)
+
+    def dec():
+        return sharding.decode_batch(*conv_dargs, codec="cheetah")
+    for what, fn, n in (("encode (corpus)", enc, int(nbytes.sum())),
+                        ("decode (alphabet input)", dec, len(conv_data))):
+        runs = sorted(timed_ms(fn, iters=5) for _ in range(REPEATS))
+        med = statistics.median(runs)
+        log(f"(f) cheetah device-resident {what} S={quads.shape[0]} "
+            f"N={quads.shape[1]}: median {med:.3f} ms = {n / med / 1e6:.3f} "
+            f"GB/s (range {runs[0]:.3f}-{runs[-1]:.3f} ms, {REPEATS} windows "
+            f"of 5 calls); device {device_ms(fn, iters=5):.4f} ms per call; "
+            f"host syncs per call {host_syncs(fn)}")
+    streams = payloads(blob)
+    n = len(data)
+    caps = [min(STREAM, n - i) for i in range(0, n, STREAM)]
+    runs = []
+    for _ in range(REPEATS):
+        t = time.perf_counter()
+        native.decode_many("cheetah", streams, caps)
+        runs.append((time.perf_counter() - t) * 1e3)
+    runs.sort()
+    med = statistics.median(runs)
+    log(f"(f) cheetah host pool decode of the corpus ({len(streams)} streams, "
+        f"{native.N_THREADS} threads): median {med:.3f} ms = "
+        f"{n / med / 1e6:.3f} GB/s (range {runs[0]:.3f}-"
+        f"{runs[-1]:.3f} ms, {REPEATS} calls)")
+    phase_profile({"cheetah_encode": enc, "cheetah_decode": dec})
+
+
 def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=OUT_DIR,
                     help="directory for the compiler and profiler reports")
-    OUT_DIR = ap.parse_args().out
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase (l)'s input")
+    args = ap.parse_args()
+    OUT_DIR = args.out
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1021,6 +1423,16 @@ def main() -> int:
     rnd = np.random.default_rng(1).integers(0, 256, 1 << 20,
                                             dtype=np.uint8).tobytes()
     errs, inputs, small = phase_parity(dev, data, rnd)
+    from density_tpu_torch.engine import layout
+    from density_tpu_torch.parallel import sharding
+    chee = cheetah_inputs(dev, data)
+    chee_small = cheetah_inputs(dev, data, SMALL_STREAMS[1])
+    # the corpus as one stream of the default 32 MiB: 2^22 quads
+    large_quads, _ = sharding.stage_encode(
+        np.frombuffer(data, np.uint8), len(data), 1,
+        layout.bucket_bytes(len(data), 128), len(data), dev)
+    for k, e in parity_cheetah(dev, chee, chee_small, large_quads).items():
+        errs[k] = max(errs[k], e)
     main_counts, main_blob = phase_main_path(dev, data)
     phase_incompressible(dev, rnd)
     small_counts, small_blobs = phase_small_streams(dev, data)
@@ -1028,17 +1440,25 @@ def main() -> int:
                                small_blobs[SMALL_STREAMS[0]])
     phase_api(dev, data)
     phase_large_streams(dev, data)
+    cheetah_counts, cheetah_blob = phase_cheetah_main(dev, data)
+    conv_data, _, conv_dargs = phase_cheetah_converging(dev, args.seed)
+    phase_cheetah_corpus_decode(dev, data, cheetah_blob)
+    phase_cheetah_sizes(dev, data)
+    phase_cheetah_edges(dev, rnd)
     # each kernel's count from its own path's counted run
     counts = {k: main_counts[k] for k in ("bigsort", "packroute", "unpack")}
     counts["pack"] = small_counts["pack"]
     counts["bitonic"] = opt_counts["bitonic"]
     log(f"(e) launches: bigsort/packroute/unpack on the main path (c), "
         f"pack on the small-stream paths (g), bitonic under "
-        f"DENSITY_TPU_SORT=bitonic (h): {counts}")
+        f"DENSITY_TPU_SORT=bitonic (h): {counts}; on cheetah's main path "
+        f"(k): {cheetah_counts}")
     if min(counts.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {counts}")
     rows = phase_timing(dev, inputs, small)
     rows.update(phase_small_timing(dev, inputs, small))
+    time_sort_3(dev, chee, large_quads)
+    time_cheetah(dev, chee, conv_dargs, conv_data, data, cheetah_blob)
     kernels = [dict(name=name, route="cuda",
                     source=f"density_tpu_torch/csrc/{name}.cu",
                     replaces=REPLACES[name], launches=counts[name],

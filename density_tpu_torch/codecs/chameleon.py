@@ -125,9 +125,10 @@ def finish_plan(up, lidx, quads, h, nbytes):
     return flags, pw, w0, w1, real.expand(S, n_q), bits
 
 
-PIPELINE = layout.Pipeline(Q=Q, SIG_WORDS=SIG_WORDS, BLOCK=BLOCK,
-                           flag_bits=SPEC.flag_bits, plan_fast=plan_fast,
-                           classify=classify, sig_pack=sig_pack)
+PIPELINE = layout.Pipeline(name="chameleon", Q=Q, SIG_WORDS=SIG_WORDS,
+                           BLOCK=BLOCK, flag_bits=SPEC.flag_bits,
+                           plan_fast=plan_fast, classify=classify,
+                           sig_pack=sig_pack)
 
 
 def encode(data, device=None) -> bytes:

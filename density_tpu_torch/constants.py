@@ -2,12 +2,13 @@
 
 These pin the wire format and must match the reference bit for bit;
 they mirror the JAX package's `constants.py`: the block geometry of all
-three codecs (`SPECS`, which `api.safe_encode_buffer_size` reads) and
-chameleon's flags.
+three codecs (`SPECS`, which `api.safe_encode_buffer_size` reads), their
+flags, and the decode-side dictionary ops of the grouping scans.
 
 Hash: h = (quad *u32 0x9D6EF916) >> 16, a u16.
 All multi-byte values are little-endian. Signature flags are packed
-LSB-first: quad i of a block occupies bit i of the 64-bit signature.
+LSB-first: quad i of a block occupies bits [i w, (i + 1) w) of the
+signature, w the codec's flag bits.
 """
 
 from __future__ import annotations
@@ -20,10 +21,27 @@ HASH_BITS = 16
 # refuses a Python int above 2**31 - 1 as an int32 operand)
 HASH_MULTIPLIER_I32 = HASH_MULTIPLIER - (1 << 32)
 
+PLAIN_FLAG = 0x0  # shared by all codecs (reference: algorithms.rs:5)
+
 CHAMELEON_FLAG_BITS = 1  # flag 0 plain, 1 map
+CHAMELEON_MAP_FLAG = 0x1
 CHAMELEON_SIG_BYTES = 8
 CHAMELEON_BLOCK_SIZE = 256  # bytes; 64 quads/block
 CHAMELEON_DECODE_UNIT = 8  # bytes out per decode unit (2 quads)
+
+# cheetah (reference: cheetah.rs:18-24, 188-196)
+CHEETAH_MAP_A_FLAG = 0x1
+CHEETAH_MAP_B_FLAG = 0x2
+CHEETAH_PREDICTED_FLAG = 0x3
+
+# lion (reference: lion.rs:18-28, 317-325); predicted A-E are 1-5
+LION_PREDICTED_A_FLAG = 0x1
+LION_MAP_A_FLAG = 0x6
+LION_MAP_B_FLAG = 0x7
+
+# decode-side dictionary ops (`grouping.seg_sel2_before`): keep, swap
+# the two slots, insert a constant
+OP_ID, OP_SWAP, OP_INS = 0, 1, 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +72,6 @@ class CodecSpec:
 
 CHAMELEON = CodecSpec("chameleon", CHAMELEON_FLAG_BITS, CHAMELEON_SIG_BYTES,
                       CHAMELEON_BLOCK_SIZE, CHAMELEON_DECODE_UNIT)
-# the other two codecs' geometry (not ported yet beyond it)
 CHEETAH = CodecSpec("cheetah", flag_bits=2, sig_bytes=8, block_size=128,
                     decode_unit=4)
 LION = CodecSpec("lion", flag_bits=3, sig_bytes=6, block_size=64,

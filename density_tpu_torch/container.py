@@ -14,7 +14,8 @@ the geometry (the JAX package's `container.py`, byte for byte):
     lengths      u32 LE * n_streams (compressed bytes per stream)
     payload: concatenated bare streams, in order
 
-This slice of the port encodes and decodes chameleon only.
+The port encodes and decodes chameleon and cheetah containers on the
+device; lion raises.
 """
 
 from __future__ import annotations
@@ -79,9 +80,8 @@ def compress(data: bytes, codec: str = "chameleon",
              stream_size: int | None = None, device=None) -> bytes:
     """Compress into a framed container on `device` (default: the CUDA
     card; raises when there is none and `device="cpu"` was not given)."""
-    if codec != "chameleon":
-        raise EncodeError(f"codec {codec!r} is not ported to the GPU yet"
-                          if codec in CODEC_IDS else f"unknown codec {codec!r}")
+    if codec not in CODEC_IDS:
+        raise EncodeError(f"unknown codec {codec!r}")
     if stream_size is None:
         stream_size = default_stream_size(codec)
     from density_tpu_torch.parallel import sharding
@@ -89,6 +89,8 @@ def compress(data: bytes, codec: str = "chameleon",
 
 
 def decompress(data: bytes, device=None) -> bytes:
-    """Decompress a framed container on `device` (default: the card)."""
+    """Decompress a framed container on `device` (default: the card). A
+    cheetah container of many predicted tokens decodes on the native
+    runtime's thread pool instead (`sharding.route`)."""
     from density_tpu_torch.parallel import sharding
     return sharding.decompress(data, device)

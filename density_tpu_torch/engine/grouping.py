@@ -1,10 +1,11 @@
 """Sort-based hash-grouping primitives on int32 tensors.
 
 Counterpart of the JAX package's `engine/grouping.py` (the part the
-chameleon path uses). Quads are kept as int32 bit patterns: torch has
-no usable uint32 arithmetic (`>>` on int32 is arithmetic, on uint32 it
-is not implemented for the CPU), so every right shift is followed by a
-mask and the hash relies on int32 multiplication wrapping mod 2**32.
+chameleon and cheetah paths use). Quads are kept as int32 bit patterns:
+torch has no usable uint32 arithmetic (`>>` on int32 is arithmetic, on
+uint32 it is not implemented for the CPU), so every right shift is
+followed by a mask and the hash relies on int32 multiplication wrapping
+mod 2**32.
 
 Functions act on a trailing scan axis and are batched over any leading
 axes (the streams).
@@ -14,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from density_tpu_torch.constants import HASH_BITS, HASH_MULTIPLIER_I32
+from density_tpu_torch.constants import (
+    HASH_BITS, HASH_MULTIPLIER_I32, OP_INS, OP_SWAP)
 
 
 def hash_quads(quads: torch.Tensor) -> torch.Tensor:
@@ -79,3 +81,181 @@ def prev_valid_value_in_group(group: torch.Tensor, values: torch.Tensor,
     inv.scatter_(-1, order, idx.contiguous())
     return (torch.gather(prev_val_s, -1, inv),
             torch.gather(has_prev_s, -1, inv))
+
+
+def seg_last_active_before(first, vals, active):
+    """Sorted-domain segmented fill: for each position t, the value of
+    the latest ACTIVE position strictly before t within its segment
+    (segments start where `first` is set), else 0. Returns (value, has).
+    """
+
+    def combine(a, b):
+        va, ha, sa = a
+        vb, hb, sb = b
+        v = torch.where(sb | hb, vb, va)
+        h = torch.where(sb, hb, ha | hb)
+        return v, h, sa | sb
+
+    vi, hi, _ = monoid_scan(
+        combine, (torch.where(active, vals, 0), active, first),
+        (0, False, False))
+    # exclusive: shift by one, reset at segment starts
+    v = torch.where(first, 0, shift_right(vi, 0))
+    h = torch.where(first, False, shift_right(hi, False))
+    return v, h
+
+
+def _mtf2_merge(a0, a1, ca, b0, b1, cb):
+    """Merge of two MTF-2 states: b's distinct values (cb of them) in
+    front, then a's that b does not hold, capped at two."""
+    in_b0 = ((cb >= 1) & (a0 == b0)) | ((cb >= 2) & (a0 == b1))
+    in_b1 = ((cb >= 1) & (a1 == b0)) | ((cb >= 2) & (a1 == b1))
+    keep0 = (ca >= 1) & ~in_b0
+    keep1 = (ca >= 2) & ~in_b1
+    first_kept = torch.where(keep0, a0, a1)
+    any_kept = keep0 | keep1
+    m0 = torch.where(cb >= 1, b0, torch.where(any_kept, first_kept, 0))
+    m1 = torch.where(cb >= 2, b1,
+                     torch.where(cb == 1, torch.where(any_kept, first_kept, 0),
+                                 torch.where(keep0 & keep1, a1, 0)))
+    cm = torch.clamp(cb + keep0.to(cb.dtype) + keep1.to(cb.dtype), max=2)
+    return m0, m1, cm
+
+
+def seg_mtf2_before(first, vals, active):
+    """Sorted-domain MTF-2 state observed BEFORE each position, over
+    active positions, reset at `first`: (front, second), the chunk_a /
+    chunk_b pair the reference dictionaries hold when the position is
+    processed (missing entries read as 0). A doubling scan of the MTF
+    monoid; count (2 bits) and sticky segment bit share one operand."""
+    cs0 = (active.to(torch.int32) << 1) | first.to(torch.int32)
+
+    def combine(a, b):
+        a0, a1, csa = a
+        b0, b1, csb = b
+        sb = (csb & 1) == 1
+        m0, m1, cm = _mtf2_merge(a0, a1, csa >> 1, b0, b1, csb >> 1)
+        return (torch.where(sb, b0, m0), torch.where(sb, b1, m1),
+                (torch.where(sb, csb >> 1, cm) << 1) | ((csa | csb) & 1))
+
+    i0, i1, _ = monoid_scan(
+        combine, (torch.where(active, vals, 0), torch.zeros_like(vals), cs0),
+        (0, 0, 0))
+    front = torch.where(first, 0, shift_right(i0, 0))
+    second = torch.where(first, 0, shift_right(i1, 0))
+    return front, second
+
+
+def seg_mtf2_before_packed(first, vals, active):
+    """`seg_mtf2_before` for values of at most 17 bits (the planner's
+    in-group fingerprints): second, count and sticky bit pack into one
+    operand beside front, two scan operands instead of three. The same
+    results."""
+    vals = vals.to(torch.int32)
+    cs0 = ((active.to(torch.int32) << 17) | (first.to(torch.int32) << 19))
+
+    def combine(a, b):
+        a0, pa = a
+        b0, pb = b
+        sb = ((pb >> 19) & 1) == 1
+        m0, m1, cm = _mtf2_merge(a0, pa & 0x1FFFF, (pa >> 17) & 3,
+                                 b0, pb & 0x1FFFF, (pb >> 17) & 3)
+        o1 = torch.where(sb, pb & 0x1FFFF, m1)
+        co = torch.where(sb, (pb >> 17) & 3, cm)
+        return (torch.where(sb, b0, m0),
+                o1 | (co << 17) | ((pa | pb) & (1 << 19)))
+
+    i0, ip = monoid_scan(combine, (torch.where(active, vals, 0), cs0),
+                         (0, 0))
+    front = torch.where(first, 0, shift_right(i0, 0))
+    second = torch.where(first, 0, shift_right(ip & 0x1FFFF, 0))
+    return front, second
+
+
+def seg_sel2_before(first, op, cval):
+    """Sorted-domain MTF-2 state BEFORE each position from flag-driven
+    ops (the decoder's dictionary chain, cheetah.rs:68-103): OP_INS
+    inserts the constant `cval` ((a, b) <- (c, a)), OP_SWAP swaps
+    ((a, b) <- (b, a)), OP_ID keeps the state; segments reset to the
+    zero state at `first`. One doubling scan of selection maps: each
+    output slot selects input slot A (0), B (1) or its constant (2).
+    Returns (a_before, b_before)."""
+    ins, swap = op == OP_INS, op == OP_SWAP
+    sa = torch.where(ins, 2, torch.where(swap, 1, 0))
+    sb = torch.where(ins | swap, 0, 1)
+    ca = torch.where(ins, cval, 0)
+    cb = torch.zeros_like(cval)
+    # segment starts compose with the zero state: every selector reads
+    # a constant, 0 unless it already was one
+    ca = torch.where(first & (sa != 2), 0, ca)
+    sa = torch.where(first, 2, sa)
+    cb = torch.where(first & (sb != 2), 0, cb)
+    sb = torch.where(first, 2, sb)
+
+    def resolve(e_sa, e_ca, e_sb, e_cb, l_src, l_cst):
+        """A later selector resolved through the earlier map."""
+        src = torch.where(l_src == 2, 2, torch.where(l_src == 0, e_sa, e_sb))
+        cst = torch.where(l_src == 2, l_cst,
+                          torch.where(l_src == 0, e_ca, e_cb))
+        return src, cst
+
+    def combine(a, b):
+        asa, aca, asb, acb, sta = a
+        bsa, bca, bsb, bcb, stb = b
+        osa, oca = resolve(asa, aca, asb, acb, bsa, bca)
+        osb, ocb = resolve(asa, aca, asb, acb, bsb, bcb)
+        return (torch.where(stb, bsa, osa), torch.where(stb, bca, oca),
+                torch.where(stb, bsb, osb), torch.where(stb, bcb, ocb),
+                sta | stb)
+
+    # the identity map: out_a = in_a (src 0), out_b = in_b (src 1)
+    isa, ica, isb, icb, _ = monoid_scan(combine, (sa, ca, sb, cb, first),
+                                        (0, 0, 1, 0, False))
+    a_inc = torch.where(isa == 2, ica, 0)
+    b_inc = torch.where(isb == 2, icb, 0)
+    return (torch.where(first, 0, shift_right(a_inc, 0)),
+            torch.where(first, 0, shift_right(b_inc, 0)))
+
+
+def ctx_fill(h, valid):
+    """Dense last_hash chain: the hash of the latest valid position
+    strictly before each one, 0 if none (cheetah.rs:148). A keep-right-
+    if-set doubling scan."""
+
+    def combine(a, b):
+        return (torch.where(b[0] < 0, a[0], b[0]),)
+
+    (filled,) = monoid_scan(combine, (torch.where(valid, h, -1),), (-1,))
+    return torch.clamp(shift_right(filled, -1), min=0)
+
+
+def mru2_state_in_group(group, values, valid):
+    """MRU-2 (move-to-front, depth 2) dictionary state seen at each
+    position, over valid positions grouped by `group`: (front, second)
+    == (chunk_a, chunk_b) of cheetah's dictionaries when the position is
+    processed (cheetah.rs:131-139), zeros where absent. Closed form
+    after one stable sort: front = the previous valid value in the
+    group; second = the valid value just before the run of equal values
+    that the previous valid position ends. The sort is `torch.sort`,
+    as the JAX package sorts here with XLA: only the masked plan of
+    streams with copy blocks reaches it. Returns both in input order."""
+    n = group.shape[-1]
+    g_s, order = torch.sort(group, dim=-1, stable=True)
+    v_s = torch.gather(values, -1, order)
+    valid_s = torch.gather(valid, -1, order)
+    idx = torch.arange(n, device=group.device).expand_as(order)
+    lv_incl = torch.cummax(torch.where(valid_s, idx, -1), dim=-1).values
+    lv = shift_right(lv_incl, -1)
+    lv_c = lv.clamp(min=0)
+    has_prev = (lv >= 0) & (torch.gather(g_s, -1, lv_c) == g_s)
+    pv = torch.where(has_prev, torch.gather(v_s, -1, lv_c), 0)
+    # a valid position starts a run where it has no valid predecessor in
+    # its group or its value differs from that predecessor's
+    run_start = valid_s & (~has_prev | (v_s != pv))
+    rs = torch.cummax(torch.where(run_start, idx, -1), dim=-1).values
+    before_run = torch.where(rs >= 0, torch.gather(pv, -1, rs.clamp(min=0)),
+                             0)
+    second = torch.where(has_prev, torch.gather(before_run, -1, lv_c), 0)
+    inv = torch.empty_like(order)
+    inv.scatter_(-1, order, idx.contiguous())
+    return torch.gather(pv, -1, inv), torch.gather(second, -1, inv)

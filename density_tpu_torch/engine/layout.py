@@ -1,7 +1,7 @@
 """Block-stream layout engine (encode side) on tensors.
 
-Counterpart of the JAX package's `engine/layout.py` for the chameleon
-path:
+Counterpart of the JAX package's `engine/layout.py`, for any codec's
+`Pipeline` (chameleon's and cheetah's geometry):
 
   * `fused`: the copy-free plan, the ragged-tail stamp, the pack kernel,
     the stream totals and the no-copy certificate in one pass
@@ -47,6 +47,7 @@ PACK_MODE = os.environ.get("DENSITY_TPU_PACK", "route")
 class Pipeline:
     """One codec's encode stages."""
 
+    name: str
     Q: int
     SIG_WORDS: int
     BLOCK: int
@@ -250,7 +251,7 @@ def stage_quads(padded_u8: np.ndarray, device) -> torch.Tensor:
 
 def encode_oneshot(pipe: Pipeline, data, device=None) -> bytes:
     """Single-stream wrapper: bytes in, density-stream bytes out."""
-    from density_tpu_torch import host_scan
+    from density_tpu_torch import native
     from density_tpu_torch.parallel.mesh import resolve_device
     dev = resolve_device(device)
     buf = np.frombuffer(bytes(data), dtype=np.uint8)
@@ -262,8 +263,8 @@ def encode_oneshot(pipe: Pipeline, data, device=None) -> bytes:
     nbytes = torch.tensor([n], dtype=torch.int32, device=dev)
     out, totals, converged = run_encode(pipe, stage_quads(padded, dev),
                                         nbytes)
-    if not converged:  # pathological stream: exact scalar fallback
-        return host_scan.encode_scalar(buf.tobytes())
+    if not converged:  # pathological stream: the exact host encoder
+        return native.encode(pipe.name, buf.tobytes())
     total = int(totals[0])
     words = out[0, :(total + 1) // 2].cpu().numpy().astype("<u2")
     return words.tobytes()[:total]

@@ -1,13 +1,21 @@
 """Container compression/decompression on one device.
 
-Counterpart of the JAX package's `parallel/sharding.py` for chameleon on
-one device. Streams form the leading (batch) axis of every tensor; the
-full streams run as one batch and the ragged final stream as its own
-batch at a capacity bucketed to its length. Encode and decode both run
-on the device; the host stages bytes, scans block offsets before decode
-(checking each stream's decoded length against the one it was given)
-and, after it, reads the words and unpack's malformed-block flag in one
-copy and stamps the ragged-tail bytes.
+Counterpart of the JAX package's `parallel/sharding.py` for chameleon and
+cheetah on one device. Streams form the leading (batch) axis of every
+tensor; the full streams run as one batch and the ragged final stream as
+its own batch at a capacity bucketed to its length.
+
+Encode runs each codec's `PIPELINE` on the device; a batch whose fixed
+point does not converge is encoded by the native runtime instead.
+Decode scans every stream on the host (`native.scan_many`, which also
+counts the predicted tokens), checks each stream's decoded length
+against the one it was given, and then takes one of two routes, as the
+JAX package's explicit-device route does: a cheetah container whose
+predicted share is above `PREDICTED_DEVICE_CUTOFF` decodes on the native
+runtime's thread pool (where there is one); every other container
+decodes on the device, its words and flags read back in one copy, the
+ragged-tail bytes stamped on the host, and a cheetah stream whose
+context fixpoint did not converge decoded again by the native runtime.
 """
 
 from __future__ import annotations
@@ -15,17 +23,38 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from density_tpu_torch import host_scan
-from density_tpu_torch.codecs import chameleon
-from density_tpu_torch.constants import CHAMELEON as SPEC
+from density_tpu_torch import host_scan, native
+from density_tpu_torch.codecs import chameleon, cheetah
+from density_tpu_torch.constants import SPECS
 from density_tpu_torch.container import (
     build_header, parse_header, split_streams)
 from density_tpu_torch.engine import layout, unlayout
-from density_tpu_torch.errors import DecodeError
+from density_tpu_torch.errors import DecodeError, EncodeError
 from density_tpu_torch.kernels import unpack
 from density_tpu_torch.parallel.mesh import resolve_device
 
-BLOCK = SPEC.block_size
+CODECS = {"chameleon": chameleon, "cheetah": cheetah}  # on the device
+
+# Above this predicted-token share a cheetah container decodes on the
+# host pool (the JAX package's cutoff, `sharding.py:316`, which comes
+# from TPU measurements: there the context fixpoint converged up to
+# about 4% predicted tokens and diverged near 10%). Kept until H100
+# figures say otherwise.
+PREDICTED_DEVICE_CUTOFF = 0.02
+
+# The most output bytes a stream's byte can give: chameleon's densest
+# token (a map) turns 2 stored bytes into 4; a block of predicted quads
+# stores its signature alone (cheetah 8 bytes for 128, lion 6 for 64).
+MAX_EXPANSION = {"chameleon": 2, "cheetah": 16, "lion": 64 / 6}
+
+
+def codec_module(codec: str, error: type = EncodeError):
+    """The device codec module of `codec`; raises `error` for a codec
+    this port does not run on the device."""
+    if codec not in CODECS:
+        raise error(f"codec {codec!r} is not ported to the GPU yet"
+                    if codec in SPECS else f"unknown codec {codec!r}")
+    return CODECS[codec]
 
 
 def _stage_streams_u8(buf: np.ndarray, n: int, s_pad: int, cap_bytes: int,
@@ -53,19 +82,19 @@ def stage_encode(buf: np.ndarray, n: int, s_real: int, cap_bytes: int,
             torch.from_numpy(nbytes).to(dev))
 
 
-def _encode_batch_to_parts(buf, offset, n, s_real, cap_bytes, stream_size,
-                           dev):
+def _encode_batch_to_parts(codec, buf, offset, n, s_real, cap_bytes,
+                           stream_size, dev):
     """Encode s_real streams of buf[offset:offset + n] (stream_size bytes
     each, the last possibly short); returns the compressed streams."""
     quads, nbytes = stage_encode(buf[offset:offset + n], n, s_real,
                                  cap_bytes, stream_size, dev)
-    out, totals, converged = layout.run_encode(chameleon.PIPELINE, quads,
-                                               nbytes)
-    if not converged:  # pathological streams: exact scalar fallback
-        return [host_scan.encode_scalar(
+    out, totals, converged = layout.run_encode(codec_module(codec).PIPELINE,
+                                               quads, nbytes)
+    if not converged:  # pathological streams: the exact host encoder
+        return native.encode_many(codec, [
             buf[offset + s * stream_size:
-                min(offset + (s + 1) * stream_size, offset + n)].tobytes())
-            for s in range(s_real)]
+                min(offset + (s + 1) * stream_size, offset + n)].tobytes()
+            for s in range(s_real)])
     totals = totals.cpu().numpy()
     max_words = (int(totals.max()) + 1) // 2
     # u16 values in int32 -> int16 (two's complement) -> u16 on the host
@@ -75,7 +104,9 @@ def _encode_batch_to_parts(buf, offset, n, s_real, cap_bytes, stream_size,
 
 
 def compress(data: bytes, codec: str, stream_size: int, device=None) -> bytes:
+    codec_module(codec)
     dev = resolve_device(device)
+    block = SPECS[codec].block_size
     buf = np.frombuffer(bytes(data), dtype=np.uint8)
     n = buf.size
     if n == 0:
@@ -86,12 +117,12 @@ def compress(data: bytes, codec: str, stream_size: int, device=None) -> bytes:
     parts = []
     if s_full:
         parts += _encode_batch_to_parts(
-            buf, 0, s_full * stream_size, s_full,
-            layout.bucket_bytes(stream_size, BLOCK), stream_size, dev)
+            codec, buf, 0, s_full * stream_size, s_full,
+            layout.bucket_bytes(stream_size, block), stream_size, dev)
     if tail:
-        cap_tail = layout.bucket_bytes(tail, BLOCK)
-        parts += _encode_batch_to_parts(buf, s_full * stream_size, tail, 1,
-                                        cap_tail, cap_tail, dev)
+        cap_tail = layout.bucket_bytes(tail, block)
+        parts += _encode_batch_to_parts(codec, buf, s_full * stream_size,
+                                        tail, 1, cap_tail, cap_tail, dev)
     if len(parts) != s_real:
         raise AssertionError("stream count mismatch")
     return build_header(codec, n, stream_size,
@@ -102,79 +133,107 @@ def compress(data: bytes, codec: str, stream_size: int, device=None) -> bytes:
 # Decompression
 # ---------------------------------------------------------------------------
 
-def _stage_decode(streams, out_lens, dev):
-    """Scan every stream on the host, check each against its decoded
-    length, and stage the device inputs: (words, woff, is_copy, nb_real,
-    out_len) and the host copy flags. A stream of decoded length 0 is
-    neither scanned nor staged, as the reference's pool skips it; every
-    other stream must decode to exactly its length, else DecodeError is
-    raised before anything reaches the device. The capacities follow
-    the data (the longest compressed stream, the longest decoded one,
-    its quads padded as encode pads them), not the container's stream
-    size, so a small input costs a small decode."""
+def _scan(codec, streams, out_lens):
+    """Scan every stream on the host and check each against its decoded
+    length. A stream of decoded length 0 is neither scanned nor checked,
+    as the reference's pool skips it; every other stream must decode to
+    exactly its length, else DecodeError. The block capacity follows the
+    longest decoded stream, its quads padded as encode pads them, so a
+    small input costs a small decode. Returns (in_offsets, is_copy,
+    block counts) per stream and the predicted-token share."""
+    spec = SPECS[codec]
     S = len(streams)
-    Q = SPEC.quads_per_block
     for stream, out_len in zip(streams, out_lens):
-        # the densest token (a map) turns 2 stored bytes into 4
-        if out_len > 2 * len(stream):
+        if out_len > MAX_EXPANSION[codec] * len(stream):
             raise DecodeError("stream too short for its decoded length")
     live = [s for s in range(S) if out_lens[s] > 0]
-    cap_words = (max(len(streams[s]) for s in live) + 1) // 2
-    nb_cap = layout.pad_quads(-(-int(max(out_lens)) // BLOCK) * Q) // Q
-    words = np.zeros((S, cap_words), dtype=np.int32)
-    woff = np.zeros((S, nb_cap), dtype=np.int32)
-    copyf = np.zeros((S, nb_cap), dtype=bool)
-    nb_real = np.zeros(S, dtype=np.int32)
-    bio, boo, bcp, nbs, _, _ = host_scan.scan_many(
-        [streams[s] for s in live], nb_cap)
+    nb_cap = layout.pad_quads(
+        -(-int(max(out_lens)) // spec.block_size) * spec.quads_per_block
+    ) // spec.quads_per_block
+    bio, boo, bcp, nbs, pred, tot = native.scan_many(
+        codec, [streams[s] for s in live], nb_cap)
+    woff = np.zeros((S, nb_cap), np.int32)
+    copyf = np.zeros((S, nb_cap), bool)
+    nb_real = np.zeros(S, np.int32)
     for j, s in enumerate(live):
         nb = int(nbs[j])
         got = host_scan.decoded_length(streams[s], bio[j, :nb], boo[j, :nb],
-                                       bcp[j, :nb])
+                                       bcp[j, :nb], codec)
         if got != out_lens[s]:
             raise DecodeError(f"stream {s} decodes to {got} bytes, its "
                               f"length is {int(out_lens[s])}")
         nb_real[s] = nb
         woff[s, :nb] = bio[j, :nb] // 2
         copyf[s, :nb] = bcp[j, :nb].astype(bool)
-        raw = np.frombuffer(streams[s], dtype=np.uint8)
-        u16 = np.zeros(2 * cap_words, np.uint8)
-        u16[:raw.size] = raw
-        words[s] = u16.view("<u2")
-    args = tuple(torch.from_numpy(a).to(dev) for a in (
+    pred_frac = float(pred.sum()) / max(1, int(tot.sum()))
+    return woff, copyf, nb_real, pred_frac
+
+
+def _stage(streams, out_lens, woff, copyf, nb_real, dev):
+    """Device inputs of the decode: (words, woff, is_copy, nb_real,
+    out_len), the words (S, W) u16 values in int32."""
+    S = len(streams)
+    cap_words = (max(len(streams[s]) for s in range(S) if out_lens[s] > 0)
+                 + 1) // 2
+    words = np.zeros((S, cap_words), dtype=np.int32)
+    for s in range(S):
+        if out_lens[s] > 0:
+            raw = np.frombuffer(streams[s], dtype=np.uint8)
+            u16 = np.zeros(2 * cap_words, np.uint8)
+            u16[:raw.size] = raw
+            words[s] = u16.view("<u2")
+    return tuple(torch.from_numpy(a).to(dev) for a in (
         words, woff, copyf, nb_real, np.asarray(out_lens, np.int32)))
-    return args, copyf, nb_real
 
 
-def decode_batch(words, woff, is_copy, nb_real, out_len):
-    """Device decode of staged streams: (S, NB * 128) int32 halfwords and
-    the one-element malformed-block flag, both left on the device (no
-    host sync)."""
-    return unlayout.decode_chameleon_batch(words, woff, is_copy, nb_real,
-                                           out_len)
+def decode_batch(words, woff, is_copy, nb_real, out_len,
+                 codec: str = "chameleon"):
+    """Device decode of staged streams: (S, NB * BLOCK / 2) int32
+    halfwords; chameleon's one-element malformed-block flag (unpack's);
+    cheetah's (S,) flags of the streams whose context fixpoint did not
+    converge. All stay on the device; a flag a codec does not make is
+    None. The chameleon decode makes no host sync; cheetah's fixpoint
+    makes one a round."""
+    if codec == "chameleon":
+        return (*unlayout.decode_chameleon_batch(words, woff, is_copy,
+                                                 nb_real, out_len), None)
+    out, ok, _ = codec_module(codec, DecodeError).decode_batch(
+        words, woff, is_copy, nb_real, out_len)
+    return out, None, ~ok
 
 
-def _finish(out_words, bad, streams, out_lens, copyf, nb_real) -> list[bytes]:
-    """Device halfwords -> per-stream bytes, ragged tails stamped from the
-    compressed streams' last bytes (they are stored raw). The halfwords
-    and the malformed-block flag come back in one host copy; a set flag
-    raises DecodeError before any bytes are returned."""
+def _finish(out_words, bad, redo, streams, out_lens, copyf, nb_real,
+            codec: str = "chameleon") -> list[bytes]:
+    """Device halfwords -> per-stream bytes. The halfwords and the flags
+    come back in one host copy; a set malformed flag raises DecodeError
+    before any bytes are returned, and a stream flagged for `redo` is
+    decoded by the native runtime instead. A ragged tail is stamped from
+    its stream's last bytes (stored raw) unless its last block is a copy
+    block, which holds them already."""
     S = out_words.shape[0]
     max_words = (int(max(out_lens, default=0)) + 1) // 2
-    host = torch.empty(S * max_words + 1, dtype=torch.int16,
+    flags = [f.reshape(-1) for f in (bad, redo) if f is not None]
+    n_flag = sum(f.numel() for f in flags)
+    host = torch.empty(S * max_words + n_flag, dtype=torch.int16,
                        device=out_words.device)
     # u16 values in int32 -> int16 (two's complement) -> u16 on the host
-    host[:-1].view(S, max_words).copy_(out_words[:, :max_words])
-    host[-1:].copy_(bad.reshape(1))
+    host[:S * max_words].view(S, max_words).copy_(out_words[:, :max_words])
+    if flags:
+        host[S * max_words:].copy_(torch.cat(flags))
     host = host.cpu().numpy()
-    if host[-1]:
+    tail = host[S * max_words:]
+    if bad is not None and tail[0]:
         raise unpack.malformed()
-    out_np = host[:-1].view("<u2").reshape(S, max_words)
+    again = (tail[-S:] != 0) if redo is not None else np.zeros(S, bool)
+    out_np = host[:S * max_words].view("<u2").reshape(S, max_words)
     parts = []
     for s, stream in enumerate(streams):
         ol = int(out_lens[s])
         if ol == 0:
             parts.append(b"")
+            continue
+        if again[s]:
+            parts.append(native.decode(codec, stream, decoded_size_hint=ol))
             continue
         chunk = bytearray(out_np[s, :(ol + 1) // 2].tobytes()[:ol])
         ragged = ol % 4
@@ -184,13 +243,9 @@ def _finish(out_words, bad, streams, out_lens, copyf, nb_real) -> list[bytes]:
     return parts
 
 
-def decode_prep(data: bytes, device=None):
-    """Header parse, host block scan and staging of the device inputs.
-    Returns (device_args, streams, host_meta)."""
-    dev = resolve_device(device)
+def _streams(data: bytes):
+    """Header parse: (codec, original_len, streams, decoded lengths)."""
     codec, original_len, stream_size, lengths, off = parse_header(data)
-    if codec != "chameleon":
-        raise DecodeError(f"codec {codec!r} is not ported to the GPU yet")
     if int(lengths.sum()) != len(data) - off:
         raise DecodeError("stream table does not match payload size")
     s_real = len(lengths)
@@ -199,38 +254,69 @@ def decode_prep(data: bytes, device=None):
         0, stream_size)
     offsets = off + np.concatenate([[0], np.cumsum(lengths)])
     streams = [data[offsets[s]:offsets[s + 1]] for s in range(s_real)]
-    args, copyf, nb_real = _stage_decode(streams, out_lens, dev)
-    return args, streams, (original_len, out_lens, copyf, nb_real)
+    return codec, original_len, streams, out_lens
+
+
+def decode_prep(data: bytes, device=None):
+    """Header parse, host block scan and staging of the device inputs.
+    Returns (device_args, streams, host_meta), host_meta = (codec,
+    original_len, out_lens, copyf, nb_real, predicted share)."""
+    dev = resolve_device(device)
+    codec, original_len, streams, out_lens = _streams(data)
+    codec_module(codec, DecodeError)
+    woff, copyf, nb_real, pred_frac = _scan(codec, streams, out_lens)
+    args = _stage(streams, out_lens, woff, copyf, nb_real, dev)
+    return args, streams, (codec, original_len, out_lens, copyf, nb_real,
+                           pred_frac)
+
+
+def route(codec: str, pred_frac: float) -> str:
+    """"pool" (the native runtime's thread pool) or "device": the JAX
+    package's explicit-device route."""
+    if (codec != "chameleon" and pred_frac > PREDICTED_DEVICE_CUTOFF
+            and native.is_available()):
+        return "pool"
+    return "device"
 
 
 def decompress(data: bytes, device=None) -> bytes:
-    _, original_len, _, _, _ = parse_header(data)
+    codec, original_len, streams, out_lens = _streams(data)
     if original_len == 0:
         return b""
-    args, streams, (original_len, out_lens, copyf, nb_real) = decode_prep(
-        data, device)
-    parts = _finish(*decode_batch(*args), streams, out_lens, copyf,
-                    nb_real)
+    dev = resolve_device(device)
+    codec_module(codec, DecodeError)
+    woff, copyf, nb_real, pred_frac = _scan(codec, streams, out_lens)
+    if route(codec, pred_frac) == "pool":
+        live = [s for s in range(len(streams)) if out_lens[s] > 0]
+        parts = native.decode_many(codec, [streams[s] for s in live],
+                                   [int(out_lens[s]) for s in live])
+    else:
+        args = _stage(streams, out_lens, woff, copyf, nb_real, dev)
+        parts = _finish(*decode_batch(*args, codec), streams,
+                        out_lens, copyf, nb_real, codec)
     out = b"".join(parts)
     if len(out) != original_len:
         raise DecodeError(f"decoded {len(out)} bytes, expected {original_len}")
     return out
 
 
-def decode_streams(streams, out_lens=None, device=None) -> list[bytes]:
-    """Decode bare chameleon streams; out_lens (the decoded sizes) come
-    from the block scan when not given."""
+def decode_streams(streams, out_lens=None, device=None,
+                   codec: str = "chameleon") -> list[bytes]:
+    """Decode bare streams on the device; out_lens (the decoded sizes)
+    come from the block scan when not given."""
     dev = resolve_device(device)
+    codec_module(codec, DecodeError)
     if out_lens is None:
         out_lens = []
         for s in streams:
             if not s:
                 out_lens.append(0)
                 continue
-            io, oo, cp, _, _ = host_scan.scan_with_counts(s)
-            out_lens.append(host_scan.decoded_length(s, io, oo, cp))
+            io, oo, cp = native.scan(codec, s)
+            out_lens.append(host_scan.decoded_length(s, io, oo, cp, codec))
     if not any(out_lens):
         return [b""] * len(streams)
-    args, copyf, nb_real = _stage_decode(streams, out_lens, dev)
-    return _finish(*decode_batch(*args), streams, out_lens, copyf,
-                   nb_real)
+    woff, copyf, nb_real, _ = _scan(codec, streams, out_lens)
+    args = _stage(streams, out_lens, woff, copyf, nb_real, dev)
+    return _finish(*decode_batch(*args, codec), streams, out_lens,
+                   copyf, nb_real, codec)

@@ -19,7 +19,7 @@ from density_tpu import native
 from density_tpu.errors import DecodeError as JDecodeError
 from density_tpu.parallel import sharding as jsharding
 from density_tpu_torch import container as pcontainer
-from density_tpu_torch import host_scan
+from density_tpu_torch import native as pnative
 from density_tpu_torch.errors import DecodeError
 from density_tpu_torch.kernels import unpack
 from density_tpu_torch.parallel import sharding
@@ -146,10 +146,10 @@ def test_malformed_flag_raises_in_finish(monkeypatch):
     words and raises DecodeError in `_finish`."""
     data = _text(3 * 65536 + 11)
     blob = pcontainer.compress(data, "chameleon", 65536, device="cpu")
-    scan = host_scan.scan_many
+    scan = pnative.scan_many
 
-    def bad_scan(streams, max_blocks):
-        bio, *rest = scan(streams, max_blocks)
+    def bad_scan(codec, streams, max_blocks):
+        bio, *rest = scan(codec, streams, max_blocks)
         bio[1, 3] = 2 * (max(len(s) for s in streams) + 100)
         return (bio, *rest)
 
@@ -160,7 +160,7 @@ def test_malformed_flag_raises_in_finish(monkeypatch):
         finished.append(int(args[1][0]))
         return finish(*args)
 
-    monkeypatch.setattr(host_scan, "scan_many", bad_scan)
+    monkeypatch.setattr(pnative, "scan_many", bad_scan)
     monkeypatch.setattr(sharding, "_finish", spy)
     with pytest.raises(DecodeError, match="malformed"):
         pcontainer.decompress(blob, device="cpu")

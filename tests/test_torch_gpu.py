@@ -362,14 +362,14 @@ def test_malformed_raises_in_finish_without_a_host_sync(cuda, monkeypatch):
     makes one) raises DecodeError through `sharding.decompress`, from
     the flag read with the words in `_finish`; the device decode before
     it makes no host sync (CUDA's sync debug mode would raise)."""
-    from density_tpu_torch import host_scan
+    from density_tpu_torch import native
     from density_tpu_torch.parallel import sharding
     blob = container.compress(_data(6, 3 * 65536 + 11), "chameleon", 65536,
                               device=cuda)
-    scan = host_scan.scan_many
+    scan = native.scan_many
 
-    def bad_scan(streams, max_blocks):
-        bio, *rest = scan(streams, max_blocks)
+    def bad_scan(codec, streams, max_blocks):
+        bio, *rest = scan(codec, streams, max_blocks)
         bio[1, 3] = 2 * (max(len(s) for s in streams) + 100)
         return (bio, *rest)
 
@@ -384,7 +384,7 @@ def test_malformed_raises_in_finish_without_a_host_sync(cuda, monkeypatch):
 
     monkeypatch.setattr(sharding, "decode_batch", no_sync_decode)
     assert container.decompress(blob, device=cuda) == _data(6, 3 * 65536 + 11)
-    monkeypatch.setattr(host_scan, "scan_many", bad_scan)
+    monkeypatch.setattr(native, "scan_many", bad_scan)
     with pytest.raises(DecodeError, match="malformed"):
         container.decompress(blob, device=cuda)
 
@@ -465,3 +465,85 @@ def test_encode_raw_on_card(cuda, n):
     enc = api.encode_raw(data, device=cuda)
     assert enc == api.encode_raw(data, backend="scalar")
     assert api.decode_raw(enc, device=cuda) == data
+
+
+# ------------------------------------------------------------- cheetah
+
+def _cheetah_parts(blob):
+    _, _, _, lengths, off = container.parse_header(blob)
+    ends = off + np.cumsum(lengths)
+    return [blob[e - n:e] for e, n in zip(ends, lengths)]
+
+
+@pytest.mark.parametrize("S,N", [(38, 65536), (1, 1 << 22)])
+@pytest.mark.parametrize("sort", ["bigsort", "bitonic"])
+def test_three_array_two_key_sorts_at_cheetah_shapes(cuda, S, N, sort):
+    """The 2-key 3-array sorts of cheetah's resolve (S=38 x 65536) and
+    planner (one 2^22-quad stream), on tie-heavy keys, against the plain
+    network; bitonic also against bigsort."""
+    mod = {"bigsort": bigsort, "bitonic": bitonic}[sort]
+    arrs = [a.to(cuda) for a in _sort_inputs(np.random.default_rng(S), S, N,
+                                             2, 3, True)]
+    got = mod.sort(*arrs, n_keys=2)
+    torch.cuda.synchronize()
+    for g, w in zip(got, bigsort.sort_plain(*arrs, n_keys=2)):
+        assert torch.equal(g, w)
+    if sort == "bitonic":
+        for g, w in zip(got, bigsort.sort(*arrs, n_keys=2)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,stream", [(3 * 65536 + 555, 65536),
+                                      (5 * 16384 + 3, 16384),
+                                      (9 * 4096 + 1, 4096)])
+def test_cheetah_container_on_card(cuda, n, stream):
+    """Cheetah compress on the card equals the native encoder stream for
+    stream (packroute at 16384 quads, pack below); decompress on the
+    card round-trips on both routes."""
+    from density_tpu_torch import native
+    from density_tpu_torch.parallel import sharding
+    data = _data(9, n)
+    blob = container.compress(data, "cheetah", stream, device=cuda)
+    parts = _cheetah_parts(blob)
+    assert parts == [native.encode("cheetah", data[i:i + stream])
+                     for i in range(0, n, stream)]
+    assert container.decompress(blob, device=cuda) == data
+    assert b"".join(sharding.decode_streams(parts, None, cuda,
+                                            "cheetah")) == data
+
+
+def test_cheetah_device_decode_converges(cuda):
+    """Quads from a 1024-value alphabet: few predictions, the device
+    route, every stream converged, the input's bytes."""
+    from density_tpu_torch.codecs import cheetah
+    from density_tpu_torch.parallel import sharding
+    rng = np.random.default_rng(10)
+    vals = rng.integers(0, 1 << 32, 1024, dtype=np.uint64).astype(np.uint32)
+    data = vals[rng.integers(0, 1024, 4 * 16384)].tobytes() + b"ab"
+    blob = container.compress(data, "cheetah", 65536, device=cuda)
+    dargs, streams, meta = sharding.decode_prep(blob, device=cuda)
+    assert sharding.route("cheetah", meta[-1]) == "device"
+    out, ok, rounds = cheetah.decode_batch(*dargs)
+    assert bool(ok.all()) and rounds <= 12
+    got = sharding._finish(out, None, ~ok, streams, *meta[2:5], "cheetah")
+    assert b"".join(got) == data
+    assert container.decompress(blob, device=cuda) == data
+
+
+def test_cheetah_options_on_card_give_default_containers(cuda, monkeypatch):
+    data = _data(11, 2 * 65536 + 7)
+    want = container.compress(data, "cheetah", 65536, device=cuda)
+    monkeypatch.setenv("DENSITY_TPU_SORT", "bitonic")
+    assert container.compress(data, "cheetah", 65536, device=cuda) == want
+    small = container.compress(data, "cheetah", 16384, device=cuda)
+    monkeypatch.delenv("DENSITY_TPU_SORT")
+    assert container.compress(data, "cheetah", 16384, device=cuda) == small
+
+
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 1000, 16384, 32771])
+def test_cheetah_encode_raw_on_card(cuda, n):
+    from density_tpu_torch import api
+    data = _data(12, n)
+    enc = api.encode_raw(data, "cheetah", device=cuda)
+    assert enc == api.encode_raw(data, "cheetah", backend="native")
+    assert api.decode_raw(enc, "cheetah", device=cuda) == data

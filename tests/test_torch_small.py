@@ -246,8 +246,7 @@ def test_decode_scalar_matches_scalar_oracle(mode):
     assert host_scan.decode_scalar(enc) == data
 
 
-@pytest.mark.parametrize("codec,backend", [
-    ("chameleon", "native"), ("cheetah", "torch"), ("lion", "scalar")])
+@pytest.mark.parametrize("codec,backend", [("lion", "torch")])
 def test_unported_backends_and_codecs_raise(codec, backend):
     with pytest.raises(EncodeError, match="not ported yet"):
         papi.encode_raw(b"abcd", codec, backend=backend, device="cpu")
