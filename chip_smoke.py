@@ -17,7 +17,8 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
       and all four of cheetah's kernels at its shapes: the resolve's and
       the planner's 3-array 2-key sorts (S=38 x 65536, one 2^22-quad
       row), the planner's packed sorts, packroute and pack at q=32,
-      flag_bits=2;
+      flag_bits=2; and the same four at lion's shapes (its resolve's
+      sort keys, packroute and pack at q=16, flag_bits=3);
   (c) the main path: chameleon compress and decompress on the card of a
       10,192,446-byte text corpus in 256 KiB streams, with every
       kernel's launch count read around it; stream bytes held against
@@ -39,7 +40,9 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
       in turns; the 3-array 2-key sorts of (b) against `torch.sort` of
       the packed int64 keys and a gather; cheetah's device-resident
       encode (corpus, 256 KiB) and decode (phase l's input), the host
-      pool's decode of the corpus, their host syncs and traces;
+      pool's decode of the corpus, their host syncs and traces; the same
+      for lion (its decode on phase q's input), and packroute (S=38 x
+      65536) and pack (S=622 x 4096) on lion's plans;
   (g) small streams: the corpus in 32 KiB and 16 KiB streams (4096- and
       8192-quad shapes, the pack kernel), compress and decompress on the
       card with launch counts, three streams of each held against the
@@ -66,7 +69,21 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
       (the planner's 3-array sorts), against the native encoder, round
       trip, byte-identical under DENSITY_TPU_SORT=bitonic;
   (o) cheetah on random and mixed inputs (fixed point, copy blocks,
-      ragged lengths) decoded on both routes, and one-shot streams.
+      ragged lengths) decoded on both routes, and one-shot streams;
+  (p) lion's main path: the corpus in 256 KiB streams compressed on the
+      card with launch counts, every stream against the native encoder
+      and three against the CPU path; decompress by its route (the
+      predicted share is printed);
+  (q) lion's device decode of phase l's kind of input (38 x 256 KiB of
+      quads from 1024 values made from `--seed`), every stream
+      converged; and how many of the corpus's streams converge at 12
+      rounds;
+  (r) lion in 16 KiB streams (pack) and the default 32 MiB stream (the
+      planner's 3-array sorts), against the native encoder, round trip,
+      byte-identical under DENSITY_TPU_SORT=bitonic and pack mode
+      "onehot";
+  (s) lion on random and mixed inputs decoded on both routes, and
+      one-shot streams.
 Prints the card's name and power limit, a `kernels` JSON line and, last,
 the device JSON line. Any failure exits non-zero. Writes the compiler's
 register report to `DIR/ptxas.txt` and the profiles to
@@ -105,6 +122,7 @@ REPLACES = {
 }
 CHAM = dict(q=64, sig_words=4, block=256, flag_bits=1)
 CHEE = dict(q=32, sig_words=4, block=128, flag_bits=2)
+LION = dict(q=16, sig_words=3, block=64, flag_bits=3)
 
 
 def log(*a):
@@ -1027,7 +1045,14 @@ def phase_profile(fns) -> None:
                 f"{k[:48]} x{c} {ms:.3f} ms" for k, c, ms in rows[:5]))
 
 
-# ---------------------------------------------------------------- cheetah
+# ---------------------------------------------------------- cheetah, lion
+
+# each codec's pack geometry and the phase letters of its main path,
+# converging decode, stream sizes and edge inputs
+GEOM = {"cheetah": CHEE, "lion": LION}
+TAGS = {"cheetah": dict(main="k", conv="l", sizes="n", edges="o"),
+        "lion": dict(main="p", conv="q", sizes="r", edges="s")}
+
 
 def stream_chunks(data: bytes, stream: int) -> list[bytes]:
     return [data[i:i + stream] for i in range(0, len(data), stream)]
@@ -1041,26 +1066,47 @@ def alphabet_input(seed: int) -> bytes:
     return vals[rng.integers(0, 1024, 38 * STREAM // 4)].tobytes()
 
 
-def cheetah_inputs(dev, data: bytes, stream: int = STREAM):
-    """The cheetah path's inputs at `stream`-byte streams: staged encode
-    quads and nbytes of the full streams, the plan the path hands its
-    pack kernel (three streams ending ragged), the container, and its
-    staged decode inputs."""
+def compress_on_device(dev, data: bytes, codec: str, stream: int):
+    """container.compress on the card, failing if any batch was left to
+    the native encoder (a fixed point that did not converge): the bytes
+    must be the card's. Returns the container and the masked plans the
+    batches' fixed points made."""
+    from density_tpu_torch import container, native
+    from density_tpu_torch.engine import layout
+    calls, plans = [], []
+    many, masked = native.encode_many, layout.plan_masked
+    native.encode_many = lambda *a: calls.append(1) or many(*a)
+    layout.plan_masked = lambda *a: plans.append(1) or masked(*a)
+    try:
+        blob = container.compress(data, codec, stream, device=dev)
+    finally:
+        native.encode_many, layout.plan_masked = many, masked
+    if calls:
+        raise AssertionError(f"{codec} at {stream}-byte streams: {len(calls)} "
+                             "batch(es) went to the native encoder")
+    return blob, len(plans)
+
+
+def codec_inputs(dev, data: bytes, codec: str, stream: int = STREAM):
+    """A codec's path inputs at `stream`-byte streams: staged encode quads
+    and nbytes of the full streams, the plan the path hands its pack
+    kernel (three streams ending ragged), the container, and its staged
+    decode inputs."""
     import torch
     from density_tpu_torch import container
-    from density_tpu_torch.codecs import cheetah
+    from density_tpu_torch.constants import SPECS
     from density_tpu_torch.engine import layout
     from density_tpu_torch.parallel import sharding
     s_full = len(data) // stream
     buf = np.frombuffer(data, np.uint8)
     quads, nbytes = sharding.stage_encode(
         buf[:s_full * stream], s_full * stream, s_full,
-        layout.bucket_bytes(stream, 128), stream, dev)
+        layout.bucket_bytes(stream, SPECS[codec].block_size), stream, dev)
     nb_rag = nbytes.clone()
     nb_rag[1:4] -= torch.tensor([1, 3, 555], dtype=torch.int32, device=dev)
-    flags, pw, w0, w1, _, _ = cheetah.plan_fast(quads, nb_rag)
+    flags, pw, w0, w1, _, _ = sharding.codec_module(codec).plan_fast(quads, nb_rag)
     w0, w1 = layout.stamp_ragged(quads, nb_rag, w0, w1)
-    blob = container.compress(data[:s_full * stream], "cheetah", stream,
+    blob = container.compress(data[:s_full * stream], codec, stream,
                               device=dev)
     dargs, streams, meta = sharding.decode_prep(blob, dev)
     return dict(quads=quads, nbytes=nbytes,
@@ -1068,30 +1114,36 @@ def cheetah_inputs(dev, data: bytes, stream: int = STREAM):
                 streams=streams, meta=meta)
 
 
-def resolve_sort_inputs(dargs):
-    """The resolve's dictionary sort operands (key, index|op|flag, plain
-    quad: 3 arrays, 2 keys) of staged cheetah streams, as
-    `cheetah.resolve` builds them."""
+def resolve_sort_inputs(dargs, codec: str):
+    """The resolve's dictionary sort operands (key, index|op|flags, plain
+    quad: 3 arrays, 2 keys) of staged streams, as the codec's `resolve`
+    builds them (cheetah: 2 flag bits, lion: 3)."""
     import torch
-    from density_tpu_torch.codecs import cheetah
     from density_tpu_torch.engine.grouping import hash_quads
-    flags, w0, w1, valid = cheetah.extract_tokens(*dargs)
+    from density_tpu_torch.parallel import sharding
+    flags, w0, w1, valid = sharding.codec_module(codec).extract_tokens(*dargs)
     S, N = flags.shape
     lidx = torch.arange(N, dtype=torch.int32, device=flags.device)[None, :]
     plain_quad = w0 | (w1 << 16)
-    nonpred = valid & (flags != 3)
+    fb = 2 if codec == "cheetah" else 3
+    is_pred = ((flags == 3) if codec == "cheetah"
+               else (flags >= 1) & (flags <= 5))
+    nonpred = valid & ~is_pred
     is_plain = valid & (flags == 0)
     key = torch.where(nonpred, torch.where(is_plain, hash_quads(plain_quad),
                                            w0), 1 << 16)
-    op = torch.where(is_plain, 2, torch.where((flags == 2) & nonpred, 1, 0))
-    k2 = (lidx << 4) | (op.to(torch.int32) << 2) | (flags & 3)
+    map_b = 2 if codec == "cheetah" else 7
+    op = torch.where(is_plain, 2, torch.where((flags == map_b) & nonpred, 1,
+                                              0))
+    k2 = ((lidx << (fb + 2)) | (op.to(torch.int32) << fb)
+          | (flags & ((1 << fb) - 1)))
     return key.contiguous(), k2.contiguous(), plain_quad.contiguous()
 
 
 def planner_sort_inputs(quads):
     """The planner's forward sort operands above 65536 quads (context,
-    index, fingerprint: 3 arrays, 2 keys), as `cheetah.plan_fast` builds
-    them."""
+    index, fingerprint: 3 arrays, 2 keys), as cheetah's and lion's
+    `plan_fast` build them."""
     import torch
     from density_tpu_torch.codecs import cheetah
     from density_tpu_torch.engine.grouping import hash_quads, shift_right
@@ -1101,19 +1153,20 @@ def planner_sort_inputs(quads):
             lidx.expand(S, N).contiguous(), cheetah.sig32(quads))
 
 
-def parity_cheetah(dev, chee, chee_small, large_quads):
+def parity_codec(dev, codec, big_in, small_in, large_quads):
     """bigsort, bitonic, packroute and pack against their plain versions
-    at cheetah's shapes: the resolve's 3-array 2-key sort and the
-    planner's (2^22 quads), the planner's packed sorts, its unsort, and
-    the plans at q=32, flag_bits=2. Returns the largest error of each."""
+    at a codec's shapes: the resolve's 3-array 2-key sort and the
+    planner's (2^22 quads), the planner's packed forward sort, its unsort,
+    and the plans at the codec's geometry (256 KiB: packroute, 16 KiB:
+    pack). Returns the largest error of each."""
     import torch
     from density_tpu_torch.codecs import cheetah
     from density_tpu_torch.engine.grouping import hash_quads, shift_right
     from density_tpu_torch.kernels import bigsort, bitonic, pack, packroute
     errs = {}
-    res = resolve_sort_inputs(chee["dargs"])
+    res = resolve_sort_inputs(big_in["dargs"], codec)
     big = planner_sort_inputs(large_quads)
-    q = chee["quads"]
+    q = big_in["quads"]
     S, N = q.shape
     lidx = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
     # the planner's first packed sort at N <= 65536: biased (context <<
@@ -1132,90 +1185,104 @@ def parity_cheetah(dev, chee, chee_small, large_quads):
                     got, bigsort.sort(*arrs, n_keys=nk)):
                 raise AssertionError("bitonic differs from bigsort")
         errs[name] = err
-        log(f"(b) {name} at cheetah's shapes: resolve S={S} N={N} 3 arrays "
+        log(f"(b) {name} at {codec}'s shapes: resolve S={S} N={N} 3 arrays "
             f"2 keys, planner S=1 N={big[0].shape[1]} 3 arrays 2 keys, "
             f"planner packed sorts and unsort, max_abs_err {err}")
-    for name, mod, inputs in (("packroute", packroute, chee),
-                              ("pack", pack, chee_small)):
+    for name, mod, inputs in (("packroute", packroute, big_in),
+                              ("pack", pack, small_in)):
         args = inputs["pack_in"]
-        got = mod.pack(*args, **CHEE)
+        got = mod.pack(*args, **GEOM[codec])
         torch.cuda.synchronize()
-        errs[name] = e = max_abs_err(got, mod.pack_plain(*args, **CHEE))
-        log(f"(b) {name} at cheetah's geometry: S={args[0].shape[0]} "
+        errs[name] = e = max_abs_err(got, mod.pack_plain(*args,
+                                                         **GEOM[codec]))
+        log(f"(b) {name} at {codec}'s geometry: S={args[0].shape[0]} "
             f"N={args[0].shape[1]} (tails 1/3/555), max_abs_err {e}")
     return errs
 
 
-def phase_cheetah_main(dev, data: bytes):
-    """(k) The corpus in 256 KiB streams, cheetah on the card, counted;
-    every stream against the native encoder, three against the CPU
-    path; decompress by the container's route."""
+def phase_codec_main(dev, data: bytes, codec: str):
+    """(k, p) The corpus in 256 KiB streams on the card, counted, every
+    batch encoded there; every stream against the native encoder, three
+    against the CPU path; decompress by the container's route."""
     from density_tpu_torch import container, native
     from density_tpu_torch.parallel import sharding
+    tag = TAGS[codec]["main"]
     reset_counts()
     t = time.time()
-    blob = container.compress(data, "cheetah", STREAM, device=dev)
+    blob, plans = compress_on_device(dev, data, codec, STREAM)
     dt = time.time() - t
     counts = read_counts()
     parts = payloads(blob)
     chunks = stream_chunks(data, STREAM)
-    if parts != native.encode_many("cheetah", chunks):
-        raise AssertionError("cheetah streams differ from native.encode")
+    if parts != native.encode_many(codec, chunks):
+        raise AssertionError(f"{codec} streams differ from native.encode")
     for i in (0, len(parts) // 2, len(parts) - 1):
-        cpu = payloads(container.compress(chunks[i], "cheetah", STREAM,
+        cpu = payloads(container.compress(chunks[i], codec, STREAM,
                                           device="cpu"))
         if cpu != [parts[i]]:
-            raise AssertionError(f"cheetah stream {i} differs from the CPU "
+            raise AssertionError(f"{codec} stream {i} differs from the CPU "
                                  "path")
     _, streams, meta = sharding.decode_prep(blob, dev)
     t = time.time()
     back = container.decompress(blob, device=dev)
     dt_dec = time.time() - t
     if back != data:
-        raise AssertionError("cheetah round trip differs from the input")
-    log(f"(k) cheetah main path: {len(data)} bytes in {len(parts)} streams "
-        f"-> {len(blob)} bytes (ratio {len(data) / len(blob):.4f}) in "
-        f"{dt:.2f} s host wall; every stream equals native.encode, streams "
-        f"0/{len(parts) // 2}/{len(parts) - 1} the CPU path; decompress "
-        f"route {sharding.route('cheetah', meta[-1])} (predicted share "
-        f"{meta[-1]:.4f}), round trip exact in {dt_dec:.2f} s; launches "
-        f"{counts}")
+        raise AssertionError(f"{codec} round trip differs from the input")
+    log(f"({tag}) {codec} main path: {len(data)} bytes in {len(parts)} "
+        f"streams -> {len(blob)} bytes (ratio {len(data) / len(blob):.4f}) "
+        f"in {dt:.2f} s host wall, every batch on the card ({plans} masked "
+        f"plans of the fixed point); every stream equals native.encode, "
+        f"streams 0/{len(parts) // 2}/{len(parts) - 1} the CPU path; "
+        f"decompress route {sharding.route(codec, meta[-1])} (predicted "
+        f"share {meta[-1]:.4f}), round trip exact in {dt_dec:.2f} s; "
+        f"launches {counts}")
     if counts["bigsort"] < 1 or counts["packroute"] < 1:
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{counts}")
     return counts, blob
 
 
-def phase_cheetah_converging(dev, seed: int):
-    """(l) The device decode where the fixpoint converges: 38 x 256 KiB
-    of seeded alphabet quads."""
+def phase_codec_converging(dev, seed: int, codec: str):
+    """(l, q) The device decode where the fixpoint converges: 38 x 256
+    KiB of seeded alphabet quads."""
     from density_tpu_torch import container, native
-    from density_tpu_torch.codecs import cheetah
     from density_tpu_torch.parallel import sharding
+    tag = TAGS[codec]["conv"]
     data = alphabet_input(seed)
-    blob = container.compress(data, "cheetah", STREAM, device=dev)
-    if payloads(blob) != native.encode_many("cheetah",
+    blob, _ = compress_on_device(dev, data, codec, STREAM)
+    if payloads(blob) != native.encode_many(codec,
                                             stream_chunks(data, STREAM)):
-        raise AssertionError("alphabet streams differ from native.encode")
+        raise AssertionError(f"alphabet {codec} streams differ from "
+                             "native.encode")
     dargs, streams, meta = sharding.decode_prep(blob, dev)
     share = meta[-1]
-    if sharding.route("cheetah", share) != "device":
+    if sharding.route(codec, share) != "device":
         raise AssertionError(f"predicted share {share} takes the pool")
     reset_counts()
-    out, ok, rounds = cheetah.decode_batch(*dargs)
+    out, ok, rounds = sharding.codec_module(codec).decode_batch(*dargs)
     counts = read_counts()
     if not bool(ok.all()):
         raise AssertionError("the resolve did not converge on every stream")
     got = b"".join(sharding._finish(out, None, ~ok, streams, meta[2],
-                                    meta[3], meta[4], "cheetah"))
+                                    meta[3], meta[4], codec))
     if got != data or container.decompress(blob, device=dev) != data:
-        raise AssertionError("device decode differs from the input")
-    log(f"(l) alphabet input (seed {seed}): {len(data)} bytes in "
-        f"{len(streams)} streams -> {len(blob)} bytes (ratio "
+        raise AssertionError(f"{codec} device decode differs from the input")
+    log(f"({tag}) {codec} alphabet input (seed {seed}): {len(data)} bytes "
+        f"in {len(streams)} streams -> {len(blob)} bytes (ratio "
         f"{len(data) / len(blob):.4f}), predicted share {share:.6f}, route "
         f"device; the resolve converged on {int(ok.sum())} of {ok.numel()} "
         f"streams in {rounds} rounds, bytes exact; decode launches {counts}")
     return data, blob, dargs
+
+
+def corpus_converged(dev, blob: bytes, codec: str):
+    """The device decode of the corpus's 256 KiB streams at 12 rounds:
+    (streams converged, streams, rounds, host seconds)."""
+    from density_tpu_torch.parallel import sharding
+    dargs, streams, _ = sharding.decode_prep(blob, dev)
+    t = time.time()
+    _, ok, rounds = sharding.codec_module(codec).decode_batch(*dargs)
+    return int(ok.sum()), ok.numel(), rounds, time.time() - t
 
 
 def phase_cheetah_corpus_decode(dev, data: bytes, blob: bytes):
@@ -1223,13 +1290,10 @@ def phase_cheetah_corpus_decode(dev, data: bytes, blob: bytes):
     then three streams with max_rounds raised until they converge."""
     from density_tpu_torch.codecs import cheetah
     from density_tpu_torch.parallel import sharding
-    dargs, streams, meta = sharding.decode_prep(blob, dev)
-    t = time.time()
-    _, ok, rounds = cheetah.decode_batch(*dargs)
-    dt = time.time() - t
-    log(f"(m) corpus, {len(streams)} streams of 256 KiB, device decode at "
-        f"12 rounds: {int(ok.sum())} of {ok.numel()} converged ({rounds} "
-        f"rounds, {dt:.3f} s)")
+    conv, n, rounds, dt = corpus_converged(dev, blob, "cheetah")
+    log(f"(m) corpus, {n} streams of 256 KiB, device decode at 12 rounds: "
+        f"{conv} of {n} converged ({rounds} rounds, {dt:.3f} s)")
+    streams = payloads(blob)
     pick = [0, len(streams) // 2, len(streams) - 2]  # full streams
     sub = [streams[i] for i in pick]
     out_lens = [STREAM] * len(pick)
@@ -1250,92 +1314,115 @@ def phase_cheetah_corpus_decode(dev, data: bytes, blob: bytes):
         raise AssertionError("converged corpus streams differ from the input")
     log(f"(m) corpus streams {pick}: converged at max_rounds={rounds_cap} "
         f"after {rounds} rounds, bytes exact")
-    return int(ok.sum()), rounds
+    return conv, rounds
 
 
-def phase_cheetah_sizes(dev, data: bytes):
-    """(n) The corpus in 16 KiB streams (the pack kernel) and in the
+def phase_codec_sizes(dev, data: bytes, codec: str, onehot: bool):
+    """(n, r) The corpus in 16 KiB streams (the pack kernel) and in the
     default 32 MiB stream (the planner's 3-array sorts): compress on the
-    card against the native encoder, round trip, and the same containers
-    under DENSITY_TPU_SORT=bitonic."""
+    card (every batch encoded there) against the native encoder, round trip, and the same containers
+    under DENSITY_TPU_SORT=bitonic (and, with `onehot`, pack mode
+    "onehot"). Returns the ratios and the 16 KiB path's counts."""
     from density_tpu_torch import container, native
+    from density_tpu_torch.engine import layout
+    tag = TAGS[codec]["sizes"]
+    ratios, small_counts = {}, None
     for stream in (SMALL_STREAMS[1], LARGE_STREAMS[1]):
         reset_counts()
         t = time.time()
-        blob = container.compress(data, "cheetah", stream, device=dev)
+        blob, plans = compress_on_device(dev, data, codec, stream)
         dt = time.time() - t
         counts = read_counts()
-        if payloads(blob) != native.encode_many("cheetah",
+        if payloads(blob) != native.encode_many(codec,
                                                 stream_chunks(data, stream)):
-            raise AssertionError(f"{stream}-byte cheetah streams differ from "
+            raise AssertionError(f"{stream}-byte {codec} streams differ from "
                                  "native.encode")
         if container.decompress(blob, device=dev) != data:
-            raise AssertionError(f"{stream}-byte cheetah round trip differs")
+            raise AssertionError(f"{stream}-byte {codec} round trip differs")
         kernel = "pack" if stream < 65536 else "packroute"
         if counts["bigsort"] < 1 or counts[kernel] < 1:
             raise AssertionError(f"a kernel was not launched: {counts}")
+        small_counts = small_counts or counts
         reset_counts()
         os.environ["DENSITY_TPU_SORT"] = "bitonic"
         try:
-            other = container.compress(data, "cheetah", stream, device=dev)
+            other = container.compress(data, codec, stream, device=dev)
         finally:
             del os.environ["DENSITY_TPU_SORT"]
         bcounts = read_counts()
         if other != blob or bcounts["bitonic"] < 1:
             raise AssertionError(f"DENSITY_TPU_SORT=bitonic changed the "
                                  f"{stream}-byte container ({bcounts})")
-        log(f"(n) cheetah {stream}-byte streams: {len(data)} bytes -> "
-            f"{len(blob)} (ratio {len(data) / len(blob):.4f}) in {dt:.2f} s "
-            f"host wall, equal to native.encode, round trip exact, "
-            f"byte-identical under DENSITY_TPU_SORT=bitonic; launches "
-            f"{counts}, under bitonic {bcounts}")
+        also = ""
+        if onehot:
+            reset_counts()
+            mode, layout.PACK_MODE = layout.PACK_MODE, "onehot"
+            try:
+                other = container.compress(data, codec, stream, device=dev)
+            finally:
+                layout.PACK_MODE = mode
+            ocounts = read_counts()
+            if other != blob or ocounts["pack"] < 1:
+                raise AssertionError(f"pack mode onehot changed the "
+                                     f"{stream}-byte container ({ocounts})")
+            also = f" and pack mode onehot (launches {ocounts})"
+        ratios[stream] = len(data) / len(blob)
+        log(f"({tag}) {codec} {stream}-byte streams: {len(data)} bytes -> "
+            f"{len(blob)} (ratio {ratios[stream]:.4f}) in {dt:.2f} s host "
+            f"wall on the card ({plans} masked plans), equal to native.encode, round trip exact, byte-identical "
+            f"under DENSITY_TPU_SORT=bitonic{also}; launches {counts}, under "
+            f"bitonic {bcounts}")
+    return ratios, small_counts
 
 
-def phase_cheetah_edges(dev, rnd: bytes):
-    """(o) Random and mixed inputs (fixed point, copy blocks, ragged
+def phase_codec_edges(dev, rnd: bytes, codec: str):
+    """(o, s) Random and mixed inputs (fixed point, copy blocks, ragged
     lengths) and one-shot streams, against the native encoder; decoded
     on both routes."""
     from density_tpu_torch import api, container, native
     from density_tpu_torch.parallel import sharding
+    tag = TAGS[codec]["edges"]
     rng = np.random.default_rng(2)
     text = corpus_bytes(1 << 20)
     mixed = b"".join(text[i:i + 65536] + rng.integers(
         0, 256, 65536, dtype=np.uint8).tobytes()
         for i in range(0, 1 << 20, 131072)) + b"xyz"
     for name, data in (("random", rnd), ("mixed", mixed)):
-        blob = container.compress(data, "cheetah", STREAM, device=dev)
+        blob = container.compress(data, codec, STREAM, device=dev)
         parts = payloads(blob)
-        if parts != native.encode_many("cheetah", stream_chunks(data, STREAM)):
-            raise AssertionError(f"{name}: cheetah streams differ")
+        if parts != native.encode_many(codec, stream_chunks(data, STREAM)):
+            raise AssertionError(f"{name}: {codec} streams differ")
         if container.decompress(blob, device=dev) != data:
             raise AssertionError(f"{name}: round trip differs")
         if b"".join(sharding.decode_streams(parts, None, dev,
-                                            "cheetah")) != data:
+                                            codec)) != data:
             raise AssertionError(f"{name}: device decode differs")
-        log(f"(o) cheetah {name}: {len(data)} bytes -> {len(blob)}, equal to "
-            f"native.encode, round trip exact on the container's route and "
-            f"on the device")
-    msgs = [text[7 * n:8 * n] for n in (0, 1, 127, 128, 1000, 16384, 32771)]
+        log(f"({tag}) {codec} {name}: {len(data)} bytes -> {len(blob)}, "
+            f"equal to native.encode, round trip exact on the container's "
+            f"route and on the device")
+    msgs = [text[7 * n:8 * n] for n in (0, 1, 63, 64, 127, 128, 1000, 16384,
+                                        32771)]
     msgs.append(rnd[:32 << 10])
     for msg in msgs:
-        enc = api.encode_raw(msg, "cheetah", device=dev)
-        if enc != api.encode_raw(msg, "cheetah", backend="native"):
+        enc = api.encode_raw(msg, codec, device=dev)
+        if enc != api.encode_raw(msg, codec, backend="native"):
             raise AssertionError(f"encode_raw of {len(msg)} bytes differs")
-        if api.decode_raw(enc, "cheetah", device=dev) != msg:
+        if api.decode_raw(enc, codec, device=dev) != msg:
             raise AssertionError(f"decode_raw of {len(msg)} bytes differs")
-    log(f"(o) cheetah encode_raw/decode_raw on the card: "
+    log(f"({tag}) {codec} encode_raw/decode_raw on the card: "
         f"{[len(m) for m in msgs]} bytes, equal to the native backend")
 
 
 def time_sort_3(dev, chee, large_quads) -> None:
-    """bigsort and bitonic at the 3-array 2-key shapes cheetah makes (the
-    resolve at S=38 x 65536, the planner on one 2^22-quad stream), with
-    kernel launches per sort, the bound, and the library call beside
-    them: `torch.sort` of the two keys packed into one int64, then a
-    gather of the carried array."""
+    """bigsort and bitonic at the 3-array 2-key shapes cheetah and lion
+    make (the resolve at S=38 x 65536, the planner on one 2^22-quad
+    stream), with kernel launches per sort, the bound, and the library
+    call beside them: `torch.sort` of the two keys packed into one int64,
+    then a gather of the carried array."""
     import torch
     from density_tpu_torch.kernels import bigsort, bitonic
-    for what, arrs in (("resolve", resolve_sort_inputs(chee["dargs"])),
+    for what, arrs in (("resolve", resolve_sort_inputs(chee["dargs"],
+                                                       "cheetah")),
                        ("planner", planner_sort_inputs(large_quads))):
         S, N = arrs[0].shape
 
@@ -1354,45 +1441,68 @@ def time_sort_3(dev, chee, large_quads) -> None:
                       "torch.sort of the packed int64 keys + gather"))
 
 
-def time_cheetah(dev, chee, conv_dargs, conv_data, data, blob) -> None:
-    """Device-resident cheetah encode (the corpus at 256 KiB) and decode
-    (the converging input of (l)), the host pool's decode of the corpus,
-    host syncs per call, and one profiler trace of each."""
+def time_lion_packs(lion_in, lion_small) -> None:
+    """packroute at S=38 x 65536 and pack at S=622 x 4096 on lion's real
+    plans (q=16, flag_bits=3), with kernel launches per call."""
+    from density_tpu_torch.kernels import pack, packroute
+    for name, mod, inputs in (("packroute", packroute, lion_in),
+                              ("pack", pack, lion_small)):
+        args = inputs["pack_in"]
+        S, N = args[0].shape
+        ms, n = device_profile(lambda: mod.pack(*args, **LION))
+        log_row(name, dict(
+            ms=ms,
+            plain_ms=device_ms(lambda: mod.pack_plain(*args, **LION),
+                               iters=3),
+            library_ms=None, bound=pack_bound(S, N, 16, 3),
+            shape=f"lion's plan: S={S} N={N} q=16 flag_bits=3; {n:g} kernel "
+                  "launch per call"))
+
+
+def time_codec(dev, codec, inputs, conv_dargs, conv_data, data,
+               blob) -> None:
+    """A codec's device-resident encode (the corpus at 256 KiB) and decode
+    (the converging input of (l) or (q)), the host pool's decode of the
+    corpus, host syncs and device time and kernel launches per call, and
+    one profiler trace of each."""
     from density_tpu_torch import native
-    from density_tpu_torch.codecs import cheetah
     from density_tpu_torch.engine import layout
     from density_tpu_torch.parallel import sharding
-    quads, nbytes = chee["quads"], chee["nbytes"]
+    quads, nbytes = inputs["quads"], inputs["nbytes"]
+    pipe = sharding.codec_module(codec).PIPELINE
 
     def enc():
-        return layout.run_encode(cheetah.PIPELINE, quads, nbytes)
+        return layout.run_encode(pipe, quads, nbytes)
 
     def dec():
-        return sharding.decode_batch(*conv_dargs, codec="cheetah")
+        return sharding.decode_batch(*conv_dargs, codec)
+    if not enc()[2]:
+        raise AssertionError(f"the timed {codec} encode did not converge")
     for what, fn, n in (("encode (corpus)", enc, int(nbytes.sum())),
                         ("decode (alphabet input)", dec, len(conv_data))):
         runs = sorted(timed_ms(fn, iters=5) for _ in range(REPEATS))
         med = statistics.median(runs)
-        log(f"(f) cheetah device-resident {what} S={quads.shape[0]} "
+        ms, launches = device_profile(fn, iters=5)
+        log(f"(f) {codec} device-resident {what} S={quads.shape[0]} "
             f"N={quads.shape[1]}: median {med:.3f} ms = {n / med / 1e6:.3f} "
             f"GB/s (range {runs[0]:.3f}-{runs[-1]:.3f} ms, {REPEATS} windows "
-            f"of 5 calls); device {device_ms(fn, iters=5):.4f} ms per call; "
-            f"host syncs per call {host_syncs(fn)}")
+            f"of 5 calls); device {ms:.4f} ms and {launches:g} kernel "
+            f"launches per call; host syncs per call {host_syncs(fn)}")
     streams = payloads(blob)
     n = len(data)
     caps = [min(STREAM, n - i) for i in range(0, n, STREAM)]
     runs = []
     for _ in range(REPEATS):
         t = time.perf_counter()
-        native.decode_many("cheetah", streams, caps)
+        native.decode_many(codec, streams, caps)
         runs.append((time.perf_counter() - t) * 1e3)
     runs.sort()
     med = statistics.median(runs)
-    log(f"(f) cheetah host pool decode of the corpus ({len(streams)} streams, "
-        f"{native.N_THREADS} threads): median {med:.3f} ms = "
-        f"{n / med / 1e6:.3f} GB/s (range {runs[0]:.3f}-"
-        f"{runs[-1]:.3f} ms, {REPEATS} calls)")
-    phase_profile({"cheetah_encode": enc, "cheetah_decode": dec})
+    log(f"(f) {codec} host pool decode of the corpus ({len(streams)} "
+        f"streams, {native.N_THREADS} threads): median {med:.3f} ms = "
+        f"{n / med / 1e6:.3f} GB/s (range {runs[0]:.3f}-{runs[-1]:.3f} ms, "
+        f"{REPEATS} calls)")
+    phase_profile({f"{codec}_encode": enc, f"{codec}_decode": dec})
 
 
 def main() -> int:
@@ -1401,7 +1511,7 @@ def main() -> int:
     ap.add_argument("--out", default=OUT_DIR,
                     help="directory for the compiler and profiler reports")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of phase (l)'s input")
+                    help="seed of the input of phases (l) and (q)")
     args = ap.parse_args()
     OUT_DIR = args.out
     import torch
@@ -1425,14 +1535,17 @@ def main() -> int:
     errs, inputs, small = phase_parity(dev, data, rnd)
     from density_tpu_torch.engine import layout
     from density_tpu_torch.parallel import sharding
-    chee = cheetah_inputs(dev, data)
-    chee_small = cheetah_inputs(dev, data, SMALL_STREAMS[1])
+    paths = {codec: (codec_inputs(dev, data, codec),
+                     codec_inputs(dev, data, codec, SMALL_STREAMS[1]))
+             for codec in ("cheetah", "lion")}
     # the corpus as one stream of the default 32 MiB: 2^22 quads
     large_quads, _ = sharding.stage_encode(
         np.frombuffer(data, np.uint8), len(data), 1,
         layout.bucket_bytes(len(data), 128), len(data), dev)
-    for k, e in parity_cheetah(dev, chee, chee_small, large_quads).items():
-        errs[k] = max(errs[k], e)
+    for codec, (big_in, small_in) in paths.items():
+        for k, e in parity_codec(dev, codec, big_in, small_in,
+                                 large_quads).items():
+            errs[k] = max(errs[k], e)
     main_counts, main_blob = phase_main_path(dev, data)
     phase_incompressible(dev, rnd)
     small_counts, small_blobs = phase_small_streams(dev, data)
@@ -1440,11 +1553,18 @@ def main() -> int:
                                small_blobs[SMALL_STREAMS[0]])
     phase_api(dev, data)
     phase_large_streams(dev, data)
-    cheetah_counts, cheetah_blob = phase_cheetah_main(dev, data)
-    conv_data, _, conv_dargs = phase_cheetah_converging(dev, args.seed)
+    cheetah_counts, cheetah_blob = phase_codec_main(dev, data, "cheetah")
+    conv = {"cheetah": phase_codec_converging(dev, args.seed, "cheetah")}
     phase_cheetah_corpus_decode(dev, data, cheetah_blob)
-    phase_cheetah_sizes(dev, data)
-    phase_cheetah_edges(dev, rnd)
+    phase_codec_sizes(dev, data, "cheetah", onehot=False)
+    phase_codec_edges(dev, rnd, "cheetah")
+    lion_counts, lion_blob = phase_codec_main(dev, data, "lion")
+    conv["lion"] = phase_codec_converging(dev, args.seed, "lion")
+    done, n, rounds, dt = corpus_converged(dev, lion_blob, "lion")
+    log(f"(q) lion corpus, {n} streams of 256 KiB, device decode at 12 "
+        f"rounds: {done} of {n} converged ({rounds} rounds, {dt:.3f} s)")
+    _, lion_small_counts = phase_codec_sizes(dev, data, "lion", onehot=True)
+    phase_codec_edges(dev, rnd, "lion")
     # each kernel's count from its own path's counted run
     counts = {k: main_counts[k] for k in ("bigsort", "packroute", "unpack")}
     counts["pack"] = small_counts["pack"]
@@ -1452,13 +1572,18 @@ def main() -> int:
     log(f"(e) launches: bigsort/packroute/unpack on the main path (c), "
         f"pack on the small-stream paths (g), bitonic under "
         f"DENSITY_TPU_SORT=bitonic (h): {counts}; on cheetah's main path "
-        f"(k): {cheetah_counts}")
+        f"(k): {cheetah_counts}; on lion's main path (p): {lion_counts}, "
+        f"its 16 KiB path (r): {lion_small_counts}")
     if min(counts.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {counts}")
     rows = phase_timing(dev, inputs, small)
     rows.update(phase_small_timing(dev, inputs, small))
-    time_sort_3(dev, chee, large_quads)
-    time_cheetah(dev, chee, conv_dargs, conv_data, data, cheetah_blob)
+    time_sort_3(dev, paths["cheetah"][0], large_quads)
+    time_lion_packs(*paths["lion"])
+    for codec, blob in (("cheetah", cheetah_blob), ("lion", lion_blob)):
+        conv_data, _, conv_dargs = conv[codec]
+        time_codec(dev, codec, paths[codec][0], conv_dargs, conv_data, data,
+                   blob)
     kernels = [dict(name=name, route="cuda",
                     source=f"density_tpu_torch/csrc/{name}.cu",
                     replaces=REPLACES[name], launches=counts[name],

@@ -6,11 +6,11 @@ reference implementation's output for the same input (reference:
 chameleon.rs:45-53, cheetah.rs:57-65, lion.rs:74-82). The framed
 multi-stream container is in `container.py`.
 
-Backends: "torch" (the JAX package's "jax") runs the device path on
-`device` (the CUDA card by default, `device="cpu"` for the plain PyTorch
-versions) for chameleon and cheetah, and raises for lion; "native" runs
-the port's C++ host runtime (`native/`) and "scalar" the reference loops
-of `host_scan`, both for all three codecs.
+Backends, each for all three codecs: "torch" (the JAX package's "jax")
+runs the device path on `device` (the CUDA card by default,
+`device="cpu"` for the plain PyTorch versions); "native" runs the port's
+C++ host runtime (`native/`) and "scalar" the reference loops of
+`host_scan`.
 """
 
 from __future__ import annotations
@@ -33,9 +33,6 @@ def _check(codec: str, backend: str, error: type) -> None:
         raise error(f"unknown codec {codec!r}")
     if backend not in BACKENDS:
         raise error(f"unknown backend {backend!r}")
-    if backend == "torch" and codec == "lion":
-        raise error(f"codec {codec!r} with backend {backend!r} is not "
-                    "ported yet")
 
 
 def encode_raw(data: bytes, codec: str = "chameleon",

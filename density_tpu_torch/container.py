@@ -14,8 +14,8 @@ the geometry (the JAX package's `container.py`, byte for byte):
     lengths      u32 LE * n_streams (compressed bytes per stream)
     payload: concatenated bare streams, in order
 
-The port encodes and decodes chameleon and cheetah containers on the
-device; lion raises.
+The port encodes and decodes the containers of all three codecs on the
+device.
 """
 
 from __future__ import annotations
@@ -90,7 +90,7 @@ def compress(data: bytes, codec: str = "chameleon",
 
 def decompress(data: bytes, device=None) -> bytes:
     """Decompress a framed container on `device` (default: the card). A
-    cheetah container of many predicted tokens decodes on the native
-    runtime's thread pool instead (`sharding.route`)."""
+    cheetah or lion container of many predicted tokens decodes on the
+    native runtime's thread pool instead (`sharding.route`)."""
     from density_tpu_torch.parallel import sharding
     return sharding.decompress(data, device)

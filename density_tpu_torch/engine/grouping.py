@@ -1,11 +1,11 @@
 """Sort-based hash-grouping primitives on int32 tensors.
 
 Counterpart of the JAX package's `engine/grouping.py` (the part the
-chameleon and cheetah paths use). Quads are kept as int32 bit patterns:
-torch has no usable uint32 arithmetic (`>>` on int32 is arithmetic, on
-uint32 it is not implemented for the CPU), so every right shift is
-followed by a mask and the hash relies on int32 multiplication wrapping
-mod 2**32.
+chameleon, cheetah and lion paths use). Quads are kept as int32 bit
+patterns: torch has no usable uint32 arithmetic (`>>` on int32 is
+arithmetic, on uint32 it is not implemented for the CPU), so every right
+shift is followed by a mask and the hash relies on int32 multiplication
+wrapping mod 2**32.
 
 Functions act on a trailing scan axis and are batched over any leading
 axes (the streams).
@@ -26,13 +26,18 @@ def hash_quads(quads: torch.Tensor) -> torch.Tensor:
 
 
 def shift_n(x: torch.Tensor, s: int, fill, dim: int = -1) -> torch.Tensor:
-    """Dense shift by s along `dim`, filling with `fill`."""
+    """Dense shift by s along `dim`, filling with `fill`: a scalar, or a
+    tensor that broadcasts over the pad (a per-slot identity on a
+    trailing slot axis)."""
     n = x.shape[dim]
-    if s >= n:
-        return torch.full_like(x, fill)
     pad_shape = list(x.shape)
-    pad_shape[dim] = s
-    pad = torch.full(pad_shape, fill, dtype=x.dtype, device=x.device)
+    pad_shape[dim] = min(s, n)
+    if isinstance(fill, torch.Tensor):
+        pad = fill.to(dtype=x.dtype, device=x.device).expand(pad_shape)
+    else:
+        pad = torch.full(pad_shape, fill, dtype=x.dtype, device=x.device)
+    if s >= n:
+        return pad.contiguous()
     return torch.cat([pad, x.narrow(dim, 0, n - s)], dim=dim)
 
 
@@ -215,6 +220,54 @@ def seg_sel2_before(first, op, cval):
     b_inc = torch.where(isb == 2, icb, 0)
     return (torch.where(first, 0, shift_right(a_inc, 0)),
             torch.where(first, 0, shift_right(b_inc, 0)))
+
+
+def seg_selq_before(first, kind, depth, cval, K: int):
+    """Sorted-domain K-slot prediction-queue state BEFORE each position
+    from flag-driven ops (lion's decode, lion.rs:50-57, 126-186):
+
+      kind == OP_INS:  shift-insert the constant `cval` at slot 0
+                       (q <- [c, q0, .., q_{K-2}]; no dedup)
+      kind == OP_SWAP: promote slot `depth` to the front
+                       (q <- [q_d, q0, .., q_{d-1}, q_{d+1}, ..])
+      kind == OP_ID:   leave the queue (invalid positions)
+
+    Segments reset to the zero queue at `first`. One doubling scan of
+    selection maps on a trailing slot axis: each output slot selects an
+    input slot (0..K-1) or its constant (K). Two maps compose by one
+    gather on the slot axis, with no (..., K, K) one-hot. Returns
+    (..., n, K) int32."""
+    dev = first.device
+    dim = first.dim() - 1  # the scan axis of (..., n) and (..., n, K)
+    slot = torch.arange(K, dtype=torch.int8, device=dev)
+    d = depth.to(torch.int8)[..., None]
+    src_ins = torch.where(slot == 0, K, slot - 1).to(torch.int8)
+    src_pro = torch.where(slot == 0, d, torch.where(slot <= d, slot - 1, slot))
+    ins = (kind == OP_INS)[..., None]
+    src = torch.where(ins, src_ins,
+                      torch.where((kind == OP_SWAP)[..., None], src_pro, slot))
+    cst = torch.where(ins & (slot == 0), cval.to(torch.int32)[..., None], 0)
+    # segment starts compose with the zero queue: every selector reads a
+    # constant, 0 unless it already was one
+    cst = torch.where(first[..., None] & (src != K), 0, cst)
+    src = torch.where(first[..., None], K, src).to(torch.int8)
+
+    def combine(a, b):
+        asrc, acst, sta = a
+        bsrc, bcst, stb = b
+        sel = bsrc.long().clamp_(max=K - 1)
+        isc = bsrc == K
+        osrc = torch.where(isc, K, torch.gather(asrc, -1, sel))
+        ocst = torch.where(isc, bcst, torch.gather(acst, -1, sel))
+        st = stb[..., None]
+        return (torch.where(st, bsrc, osrc), torch.where(st, bcst, ocst),
+                sta | stb)
+
+    # the identity map: every output slot selects its own input slot
+    isrc, icst, _ = monoid_scan(combine, (src, cst, first),
+                                (slot, 0, False), dim)
+    inc = torch.where(isrc == K, icst, 0)
+    return torch.where(first[..., None], 0, shift_right(inc, 0, dim))
 
 
 def ctx_fill(h, valid):

@@ -38,7 +38,13 @@ from density_tpu_torch.engine.grouping import hash_quads
 from density_tpu_torch.engine.protection import replay_fsm
 from density_tpu_torch.kernels import pack, packroute
 
-MAX_FIXED_POINT_ITERS = 8
+# Plans of the fixed point over the copy-block set before the batch goes
+# to the native encoder. Its fixed point is unique (a block's copy
+# decision depends only on earlier blocks), so a higher cap changes no
+# byte, only where the bytes are made. The JAX package stops at 8; lion
+# text can need more (9 for the first 64 KiB of the stdlib's source),
+# and 8 would leave such batches to the host.
+MAX_FIXED_POINT_ITERS = 16
 MIN_QUADS = pack.GQ_MIN  # one tile of the small-stream pack kernel
 PACK_MODE = os.environ.get("DENSITY_TPU_PACK", "route")
 

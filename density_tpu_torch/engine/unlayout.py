@@ -1,11 +1,15 @@
-"""Decode-side layout engine: batched token extraction and chameleon map
-resolution on the sort kernel.
+"""Decode-side layout engine: batched token extraction, chameleon map
+resolution on the sort kernel, and the token gathers and output assembly
+that cheetah and lion share.
 
 Counterpart of the JAX package's `engine/unlayout.py` (its kernel
 branch). Reference semantics (chameleon.rs:105-135): a MAP token
 resolves to the nearest preceding PLAIN token with the same hash,
 because maps never modify the dictionary; first-in-group maps read the
-zero-initialized dictionary (value 0).
+zero-initialized dictionary (value 0). Cheetah's and lion's tokens come
+from tensor gathers, as the JAX package extracts them (`_extract_tokens`
+of each codec, over a batch), and their quads are laid out by
+`assemble_quads` (each codec's `_assemble`).
 """
 
 from __future__ import annotations
@@ -140,3 +144,62 @@ def decode_chameleon_batch(words, woff, is_copy, nb_real, out_len):
     lo = torch.where(valid, quads & 0xFFFF, 0)
     hi = torch.where(valid, (quads >> 16) & 0xFFFF, 0)
     return torch.stack([lo, hi], dim=-1).reshape(S, 2 * N), bad
+
+
+def per_quad(blocks, q: int):
+    """(S, nb) per-block values -> (S, nb * q) per quad."""
+    S, nb = blocks.shape
+    return blocks[:, :, None].expand(S, nb, q).reshape(S, nb * q)
+
+
+def gather_tokens(words, woff, is_copy, nb_real, out_len, spec, sig_unpack,
+                  no_payload_flag: int):
+    """Per-quad (flags, w0, w1, valid) of staged cheetah or lion streams:
+    words (S, W) u16 values in int32, woff (S, NB) block word offsets,
+    is_copy (S, NB), nb_real and out_len (S,). `sig_unpack` turns (S, NB,
+    sig_words) signature words into (S, NB, q) flags; a position without
+    a token (past the data, in a copy or dead block) gets
+    `no_payload_flag`, a flag with no payload. A gather past the words
+    reads the last word."""
+    Q, SW = spec.quads_per_block, spec.sig_words
+    S, NB = woff.shape
+    cap = words.shape[1]
+    dev = words.device
+    n_q = NB * Q
+    is_real_block = torch.arange(NB, device=dev)[None, :] < nb_real[:, None]
+
+    def gather(pos):
+        return torch.gather(words, 1, pos.clamp(0, cap - 1).reshape(S, -1))
+
+    sig_w = gather(woff[:, :, None] + torch.arange(SW, device=dev))
+    flags = sig_unpack(sig_w.reshape(S, NB, SW)).reshape(S, n_q)
+    real = (torch.arange(n_q, device=dev)[None, :]
+            < (out_len.to(torch.int32) // 4)[:, None])
+    valid = real & per_quad(~is_copy & is_real_block, Q)
+    flags = torch.where(valid, flags, no_payload_flag)
+    pw = torch.where(valid, unpack.flag_payload_words(flags, spec.flag_bits),
+                     0).reshape(S, NB, Q)
+    pos = woff[:, :, None] + SW + torch.cumsum(pw, 2) - pw
+    return (flags.to(torch.int32), gather(pos), gather(pos + 1), valid)
+
+
+def assemble_quads(quads, valid, words, woff, is_copy, nb_real, out_len,
+                   block: int):
+    """(S, NB * block / 2) output halfwords (each codec's `_assemble`):
+    the resolved quads' halves where valid, a copy block's raw words over
+    its own span."""
+    S, NB = woff.shape
+    cap = words.shape[1]
+    dev = words.device
+    wpb = block // 2
+    bidx = torch.arange(NB, device=dev)[None, :]
+    lo = torch.where(valid, quads & 0xFFFF, 0)
+    hi = torch.where(valid, (quads >> 16) & 0xFFFF, 0)
+    out = torch.stack([lo, hi], dim=-1).reshape(S, NB, wpb)
+    j = torch.arange(wpb, device=dev)
+    blen = torch.clamp(out_len[:, None] - bidx * block, 0, block)
+    cmask = ((is_copy & (bidx < nb_real[:, None]))[:, :, None]
+             & (j < ((blen + 1) // 2)[:, :, None]))
+    src = (woff[:, :, None] + j).clamp(0, cap - 1).reshape(S, -1)
+    raw = torch.gather(words, 1, src).reshape(S, NB, wpb)
+    return torch.where(cmask, raw, out).reshape(S, NB * wpb)

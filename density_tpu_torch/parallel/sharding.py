@@ -1,7 +1,7 @@
 """Container compression/decompression on one device.
 
-Counterpart of the JAX package's `parallel/sharding.py` for chameleon and
-cheetah on one device. Streams form the leading (batch) axis of every
+Counterpart of the JAX package's `parallel/sharding.py` for the three
+codecs on one device. Streams form the leading (batch) axis of every
 tensor; the full streams run as one batch and the ragged final stream as
 its own batch at a capacity bucketed to its length.
 
@@ -10,12 +10,13 @@ point does not converge is encoded by the native runtime instead.
 Decode scans every stream on the host (`native.scan_many`, which also
 counts the predicted tokens), checks each stream's decoded length
 against the one it was given, and then takes one of two routes, as the
-JAX package's explicit-device route does: a cheetah container whose
-predicted share is above `PREDICTED_DEVICE_CUTOFF` decodes on the native
-runtime's thread pool (where there is one); every other container
+JAX package's explicit-device route does: a cheetah or lion container
+whose predicted share is above `PREDICTED_DEVICE_CUTOFF` decodes on the
+native runtime's thread pool (where there is one); every other container
 decodes on the device, its words and flags read back in one copy, the
-ragged-tail bytes stamped on the host, and a cheetah stream whose
-context fixpoint did not converge decoded again by the native runtime.
+ragged-tail bytes stamped on the host, and a cheetah or lion stream
+whose context fixpoint did not converge decoded again by the native
+runtime.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from density_tpu_torch import host_scan, native
-from density_tpu_torch.codecs import chameleon, cheetah
+from density_tpu_torch.codecs import chameleon, cheetah, lion
 from density_tpu_torch.constants import SPECS
 from density_tpu_torch.container import (
     build_header, parse_header, split_streams)
@@ -33,13 +34,13 @@ from density_tpu_torch.errors import DecodeError, EncodeError
 from density_tpu_torch.kernels import unpack
 from density_tpu_torch.parallel.mesh import resolve_device
 
-CODECS = {"chameleon": chameleon, "cheetah": cheetah}  # on the device
+CODECS = {"chameleon": chameleon, "cheetah": cheetah, "lion": lion}
 
-# Above this predicted-token share a cheetah container decodes on the
-# host pool (the JAX package's cutoff, `sharding.py:316`, which comes
+# Above this predicted-token share a cheetah or lion container decodes on
+# the host pool (the JAX package's cutoff, `sharding.py:316`, which comes
 # from TPU measurements: there the context fixpoint converged up to
-# about 4% predicted tokens and diverged near 10%). Kept until H100
-# figures say otherwise.
+# about 4% (cheetah) and 1.3% (lion) predicted tokens and diverged near
+# 10%). Kept until H100 figures say otherwise.
 PREDICTED_DEVICE_CUTOFF = 0.02
 
 # The most output bytes a stream's byte can give: chameleon's densest
@@ -49,11 +50,10 @@ MAX_EXPANSION = {"chameleon": 2, "cheetah": 16, "lion": 64 / 6}
 
 
 def codec_module(codec: str, error: type = EncodeError):
-    """The device codec module of `codec`; raises `error` for a codec
-    this port does not run on the device."""
+    """The device codec module of `codec`; raises `error` for an unknown
+    codec."""
     if codec not in CODECS:
-        raise error(f"codec {codec!r} is not ported to the GPU yet"
-                    if codec in SPECS else f"unknown codec {codec!r}")
+        raise error(f"unknown codec {codec!r}")
     return CODECS[codec]
 
 
@@ -190,10 +190,10 @@ def decode_batch(words, woff, is_copy, nb_real, out_len,
                  codec: str = "chameleon"):
     """Device decode of staged streams: (S, NB * BLOCK / 2) int32
     halfwords; chameleon's one-element malformed-block flag (unpack's);
-    cheetah's (S,) flags of the streams whose context fixpoint did not
-    converge. All stay on the device; a flag a codec does not make is
-    None. The chameleon decode makes no host sync; cheetah's fixpoint
-    makes one a round."""
+    cheetah's and lion's (S,) flags of the streams whose context fixpoint
+    did not converge. All stay on the device; a flag a codec does not
+    make is None. The chameleon decode makes no host sync; the others'
+    fixpoint makes one a round."""
     if codec == "chameleon":
         return (*unlayout.decode_chameleon_batch(words, woff, is_copy,
                                                  nb_real, out_len), None)

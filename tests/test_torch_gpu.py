@@ -547,3 +547,92 @@ def test_cheetah_encode_raw_on_card(cuda, n):
     enc = api.encode_raw(data, "cheetah", device=cuda)
     assert enc == api.encode_raw(data, "cheetah", backend="native")
     assert api.decode_raw(enc, "cheetah", device=cuda) == data
+
+
+# ------------------------------------------------------------------ lion
+
+@pytest.mark.parametrize("n,stream", [(3 * 262144 + 555, 262144),
+                                      (5 * 16384 + 3, 16384)])
+def test_lion_container_on_card_equals_cpu(cuda, n, stream):
+    """Lion compress on the card (packroute at 65536 quads, pack at
+    4096) equals the CPU path and the native encoder stream for stream;
+    decompress on the card round-trips on both routes."""
+    from density_tpu_torch import native
+    from density_tpu_torch.parallel import sharding
+    data = _data(13, n)
+    blob = container.compress(data, "lion", stream, device=cuda)
+    assert blob == container.compress(data, "lion", stream, device="cpu")
+    parts = _cheetah_parts(blob)
+    assert parts == [native.encode("lion", data[i:i + stream])
+                     for i in range(0, n, stream)]
+    assert container.decompress(blob, device=cuda) == data
+    assert b"".join(sharding.decode_streams(parts, None, cuda,
+                                            "lion")) == data
+
+
+def _lion_alphabet_decode_args(cuda):
+    from density_tpu_torch.parallel import sharding
+    rng = np.random.default_rng(14)
+    vals = rng.integers(0, 1 << 32, 1024, dtype=np.uint64).astype(np.uint32)
+    data = vals[rng.integers(0, 1024, 4 * 16384)].tobytes() + b"ab"
+    blob = container.compress(data, "lion", 65536, device=cuda)
+    dargs, streams, meta = sharding.decode_prep(blob, device=cuda)
+    assert sharding.route("lion", meta[-1]) == "device"
+    return data, blob, dargs, streams, meta
+
+
+def test_lion_device_decode_converges(cuda):
+    """Quads from a 1024-value alphabet: few predictions, the device
+    route, every stream converged, the input's bytes."""
+    from density_tpu_torch.codecs import lion
+    from density_tpu_torch.parallel import sharding
+    data, blob, dargs, streams, meta = _lion_alphabet_decode_args(cuda)
+    out, ok, rounds = lion.decode_batch(*dargs)
+    assert bool(ok.all()) and rounds <= 12
+    got = sharding._finish(out, None, ~ok, streams, *meta[2:5], "lion")
+    assert b"".join(got) == data
+    assert container.decompress(blob, device=cuda) == data
+
+
+def test_lion_decode_one_host_sync_a_round(cuda):
+    """The device decode reads back one flag a fixpoint round after the
+    first (whether any stream changed), and the last one that ends the
+    loop: as many host syncs as rounds, nothing else."""
+    import warnings
+    from density_tpu_torch.codecs import lion
+    _, _, dargs, _, _ = _lion_alphabet_decode_args(cuda)
+    lion.decode_batch(*dargs)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, ok, rounds = lion.decode_batch(*dargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    assert bool(ok.all()) and 1 < rounds < 12
+    assert syncs == rounds
+
+
+def test_lion_options_on_card_give_default_containers(cuda, monkeypatch):
+    from density_tpu_torch.engine import layout
+    data = _data(15, 2 * 65536 + 7)
+    want = container.compress(data, "lion", 65536, device=cuda)
+    monkeypatch.setenv("DENSITY_TPU_SORT", "bitonic")
+    assert container.compress(data, "lion", 65536, device=cuda) == want
+    small = container.compress(data, "lion", 16384, device=cuda)
+    monkeypatch.delenv("DENSITY_TPU_SORT")
+    assert container.compress(data, "lion", 16384, device=cuda) == small
+    monkeypatch.setattr(layout, "PACK_MODE", "onehot")
+    assert container.compress(data, "lion", 65536, device=cuda) == want
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 127, 1000, 16384, 32771])
+def test_lion_encode_raw_on_card(cuda, n):
+    from density_tpu_torch import api
+    data = _data(16, n)
+    enc = api.encode_raw(data, "lion", device=cuda)
+    assert enc == api.encode_raw(data, "lion", backend="native")
+    assert api.decode_raw(enc, "lion", device=cuda) == data

@@ -246,14 +246,6 @@ def test_decode_scalar_matches_scalar_oracle(mode):
     assert host_scan.decode_scalar(enc) == data
 
 
-@pytest.mark.parametrize("codec,backend", [("lion", "torch")])
-def test_unported_backends_and_codecs_raise(codec, backend):
-    with pytest.raises(EncodeError, match="not ported yet"):
-        papi.encode_raw(b"abcd", codec, backend=backend, device="cpu")
-    with pytest.raises(DecodeError, match="not ported yet"):
-        papi.decode_raw(b"abcd", codec, backend=backend, device="cpu")
-
-
 def test_unknown_codec_and_backend_raise():
     with pytest.raises(EncodeError, match="unknown codec"):
         papi.encode_raw(b"abcd", "zstd")
