@@ -83,7 +83,24 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
       byte-identical under DENSITY_TPU_SORT=bitonic and pack mode
       "onehot";
   (s) lion on random and mixed inputs decoded on both routes, and
-      one-shot streams.
+      one-shot streams;
+  (t) the corpus in 256 KiB streams in 2 shares on the card (and over
+      every card where there are several) for the three codecs: each
+      container equal to (c)'s, (k)'s or (p)'s, decompress through the
+      shares (cheetah and lion also on the device route, on (l)'s and
+      (q)'s input), every kernel of the path launched at least once per
+      share; compress and decompress timed on one device and in 2
+      shares, in turns;
+  (u) two `torch.distributed` ranks (gloo, torchrun's environment, both
+      on `cuda:0` with one card) compress and decompress the corpus, (l)'s
+      seeded input and the JAX package's 97-value multi-chip input for
+      the three codecs; every rank's container equals one process's;
+  (v) `encode_stats` on the card for the three codecs, on one 256 KiB
+      stream and on the corpus as one 2^22-quad stream, equal to
+      `stream_stats` of the card's encoded stream, bigsort counted, timed
+      beside one planner pass;
+  (w) chunked sessions (`StreamEncoder`/`StreamDecoder`) of the corpus in
+      uneven chunks, equal to `native.encode`, and an LZ4 round trip.
 Prints the card's name and power limit, a `kernels` JSON line and, last,
 the device JSON line. Any failure exits non-zero. Writes the compiler's
 register report to `DIR/ptxas.txt` and the profiles to
@@ -710,14 +727,16 @@ def phase_api(dev, data: bytes) -> None:
         "bytes, equal to the scalar backend and the CPU path")
 
 
-def phase_large_streams(dev, data: bytes) -> dict:
+def phase_large_streams(dev, data: bytes):
     """Compress and decompress the corpus in 1 MiB streams (2^18 quads)
     and in the default 32 MiB stream (one stream, 2^22 quads) on the
     card, counted; stream 0 of the 1 MiB container against the CPU path,
     and a 2 MiB prefix at the default stream size against the CPU path
-    (which keeps the CPU side at 2^19 quads)."""
+    (which keeps the CPU side at 2^19 quads). Returns the counts and the
+    containers by stream size."""
     from density_tpu_torch import container
     reset_counts()
+    blobs = {}
     for stream in LARGE_STREAMS:
         t = time.time()
         blob = container.compress(data, "chameleon", stream, device=dev)
@@ -728,6 +747,7 @@ def phase_large_streams(dev, data: bytes) -> dict:
         parts = payloads(blob)
         if len(parts) != -(-len(data) // stream):
             raise AssertionError("wrong stream count")
+        blobs[stream] = blob
         if len(data) > stream:
             what = "stream 0 equals"
             same = payloads(container.compress(
@@ -750,7 +770,7 @@ def phase_large_streams(dev, data: bytes) -> dict:
     log(f"(j) launches on the large-stream paths: {counts}")
     if min(counts[k] for k in ("bigsort", "packroute", "unpack")) < 1:
         raise AssertionError(f"a kernel of the path was not launched: {counts}")
-    return counts
+    return counts, blobs
 
 
 def time_paths(name: str, quads, nbytes, dargs):
@@ -1322,11 +1342,12 @@ def phase_codec_sizes(dev, data: bytes, codec: str, onehot: bool):
     default 32 MiB stream (the planner's 3-array sorts): compress on the
     card (every batch encoded there) against the native encoder, round trip, and the same containers
     under DENSITY_TPU_SORT=bitonic (and, with `onehot`, pack mode
-    "onehot"). Returns the ratios and the 16 KiB path's counts."""
+    "onehot"). Returns the ratios, the 16 KiB path's counts and the
+    containers by stream size."""
     from density_tpu_torch import container, native
     from density_tpu_torch.engine import layout
     tag = TAGS[codec]["sizes"]
-    ratios, small_counts = {}, None
+    ratios, small_counts, blobs = {}, None, {}
     for stream in (SMALL_STREAMS[1], LARGE_STREAMS[1]):
         reset_counts()
         t = time.time()
@@ -1367,12 +1388,13 @@ def phase_codec_sizes(dev, data: bytes, codec: str, onehot: bool):
                                      f"{stream}-byte container ({ocounts})")
             also = f" and pack mode onehot (launches {ocounts})"
         ratios[stream] = len(data) / len(blob)
+        blobs[stream] = blob
         log(f"({tag}) {codec} {stream}-byte streams: {len(data)} bytes -> "
             f"{len(blob)} (ratio {ratios[stream]:.4f}) in {dt:.2f} s host "
             f"wall on the card ({plans} masked plans), equal to native.encode, round trip exact, byte-identical "
             f"under DENSITY_TPU_SORT=bitonic{also}; launches {counts}, under "
             f"bitonic {bcounts}")
-    return ratios, small_counts
+    return ratios, small_counts, blobs
 
 
 def phase_codec_edges(dev, rnd: bytes, codec: str):
@@ -1505,6 +1527,306 @@ def time_codec(dev, codec, inputs, conv_dargs, conv_data, data,
     phase_profile({f"{codec}_encode": enc, f"{codec}_decode": dec})
 
 
+# -------------------------------------- shares, processes, stats, sessions
+
+RANK_TIMEOUT = 300  # seconds for each rank of phase (u)
+RANK_INPUTS = ("corpus", "alphabet", "vocab")
+PATH_KERNELS = {"chameleon": ("bigsort", "packroute", "unpack"),
+                "cheetah": ("bigsort", "packroute"),
+                "lion": ("bigsort", "packroute")}
+
+
+def vocab_input(n_streams: int = 4, stream_size: int = 2048) -> bytes:
+    """The JAX package's multi-chip recipe (`__graft_entry__.py`, the
+    dry run's input at 2 devices): quads from 97 seeded values, a low
+    predicted share, so cheetah and lion decode on the device."""
+    rng = np.random.default_rng(7)
+    vocab = rng.integers(1, 1 << 32, 97, dtype=np.uint64).astype(np.uint32)
+    qd = vocab[rng.integers(0, 97, (n_streams * stream_size) // 4)]
+    return qd.astype("<u4").tobytes()[:n_streams * stream_size - 123]
+
+
+def rank_inputs(seed: int) -> dict:
+    """Phase (u)'s inputs by name: (data, stream size)."""
+    return {"corpus": (corpus_bytes(), STREAM),
+            "alphabet": (alphabet_input(seed), STREAM),
+            "vocab": (vocab_input(), 2048)}
+
+
+def wall_ms(fn) -> float:
+    """Host milliseconds of one call that ends in a host copy (container
+    bytes), the card synchronised after it."""
+    import torch
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def phase_shares(dev, data: bytes, blobs: dict, conv: dict) -> dict:
+    """(t) The corpus in 256 KiB streams in 2 shares on the card (and over
+    every card where there are several), each codec's container equal to
+    its one-device phase's, decompress through the shares (cheetah and
+    lion also on the device route, on phase l's and q's input); every
+    kernel of the one-device path launched at least once per share.
+    Times compress and decompress on one device against 2 shares, in
+    turns. Returns the 2-share counts by codec."""
+    import torch
+    from density_tpu_torch import container
+    lists = {"2 shares": [dev, dev]}
+    if torch.cuda.device_count() > 1:
+        lists["every card"] = [torch.device("cuda", i)
+                               for i in range(torch.cuda.device_count())]
+    counts = {}
+    for codec, blob in blobs.items():
+        for what, devs in lists.items():
+            reset_counts()
+            got = container.compress(data, codec, STREAM, device=devs)
+            back = container.decompress(got, device=devs)
+            c = read_counts()
+            if got != blob:
+                raise AssertionError(f"{codec} in {what}: the container "
+                                     "differs from one device's")
+            if back != data:
+                raise AssertionError(f"{codec} in {what}: round trip differs")
+            extra = ""
+            if codec != "chameleon":  # the device route through the shares
+                conv_data, conv_blob, _ = conv[codec]
+                if container.decompress(conv_blob, device=devs) != conv_data:
+                    raise AssertionError(f"{codec} in {what}: the device "
+                                         "route differs")
+                c = read_counts()
+                extra = " and its alphabet input on the device route"
+            low = {k: c[k] for k in PATH_KERNELS[codec] if c[k] < len(devs)}
+            if low:
+                raise AssertionError(f"{codec} in {what}: kernels launched "
+                                     f"fewer times than shares: {low}")
+            counts.setdefault(codec, c)
+            log(f"(t) {codec} corpus in {what} ({len(devs)} devices): "
+                f"container equal to one device's, round trip exact{extra}; "
+                f"launches {c}")
+        runs = {"one": ([], [dev]), "two": ([], [dev, dev])}
+        for turn in ("one", "two", "two", "one"):
+            ms, devs = runs[turn]
+            enc = wall_ms(lambda: container.compress(data, codec, STREAM,
+                                                     device=devs))
+            dec = wall_ms(lambda: container.decompress(blob, device=devs))
+            ms.append((enc, dec))
+        (e1, d1), (e2, d2) = (np.mean(runs[k][0], axis=0)
+                              for k in ("one", "two"))
+        log(f"(t) {codec} host wall, mean of 2 turns (one, two, two, one): "
+            f"compress {e1:.3f} ms on one device, {e2:.3f} ms in 2 shares "
+            f"({e2 / e1:.3f}x); decompress {d1:.3f} and {d2:.3f} ms "
+            f"({d2 / d1:.3f}x)")
+    return counts
+
+
+RANK_WORKER = """
+import os, sys
+sys.path.insert(0, os.getcwd())
+import chip_smoke
+chip_smoke.rank_worker(os.environ["SMOKE_OUT"], int(os.environ["SMOKE_SEED"]))
+"""
+
+
+def rank_worker(out_dir: str, seed: int) -> None:
+    """One rank of phase (u): `distributed_init` from torchrun's
+    environment, every input of `rank_inputs` compressed and decompressed
+    through `container` on this rank's default device, each container
+    written to `out_dir`; prints this rank's launches as JSON."""
+    import torch
+    from density_tpu_torch import container
+    from density_tpu_torch.parallel import mesh
+    mesh.distributed_init()
+    rank = mesh.process_index()
+    if mesh.process_count() != 2:
+        raise AssertionError("not a 2-process group")
+    reset_counts()
+    for name, (data, stream) in rank_inputs(seed).items():
+        for codec in ("chameleon", "cheetah", "lion"):
+            blob = container.compress(data, codec, stream)
+            if container.decompress(blob) != data:
+                raise AssertionError(f"rank {rank}: {codec} {name} round "
+                                     "trip differs")
+            with open(os.path.join(out_dir, f"{name}-{codec}-{rank}"),
+                      "wb") as f:
+                f.write(blob)
+    torch.cuda.synchronize()
+    print(json.dumps({"rank": rank, "device": str(mesh.default_devices()[0]),
+                      "launches": read_counts()}), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def phase_processes(dev, seed: int, blobs: dict) -> None:
+    """(u) Two `torch.distributed` ranks (gloo, torchrun's environment,
+    both on `cuda:0` with one card) compress and decompress the corpus in
+    256 KiB streams, phase l's seeded input and the JAX package's 97-value
+    multi-chip input, for the three codecs. Every rank's container must
+    equal the one-process one in `blobs` ((name, codec) -> container); a
+    rank that fails or outlasts RANK_TIMEOUT fails the phase, and both are
+    killed. The ranks' containers go to a scratch directory under DIR,
+    removed at the end."""
+    import shutil
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="ranks-", dir=OUT_DIR)
+    try:
+        _run_ranks(out_dir, seed, blobs)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _run_ranks(out_dir: str, seed: int, blobs: dict) -> None:
+    """Phase (u)'s two ranks, writing to `out_dir`; see
+    `phase_processes`."""
+    import socket
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    t = time.time()
+    try:
+        for rank in range(2):
+            env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                       WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), SMOKE_OUT=out_dir,
+                       SMOKE_SEED=str(seed))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", RANK_WORKER], cwd=here, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        reports = []
+        for rank, p in enumerate(procs):
+            out, err = p.communicate(timeout=RANK_TIMEOUT)
+            if p.returncode != 0:
+                raise AssertionError(f"(u) rank {rank} failed "
+                                     f"({p.returncode}): {err[-3000:]}")
+            reports.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    dt = time.time() - t
+    for (name, codec), want in blobs.items():
+        for rank in range(2):
+            with open(os.path.join(out_dir, f"{name}-{codec}-{rank}"),
+                      "rb") as f:
+                if f.read() != want:
+                    raise AssertionError(f"(u) rank {rank}: {codec} {name} "
+                                         "differs from one process's")
+    for r in reports:
+        low = [k for k in ("bigsort", "packroute", "unpack")
+               if r["launches"][k] < 1]
+        if low:
+            raise AssertionError(f"(u) rank {r['rank']} launched no {low}")
+    log(f"(u) 2 ranks (gloo) in {dt:.1f} s wall, on "
+        f"{[r['device'] for r in reports]}: {len(blobs)} containers "
+        f"({', '.join(RANK_INPUTS)} x 3 codecs) equal on both ranks and to "
+        f"one process's, every round trip exact; launches "
+        f"{[r['launches'] for r in reports]}")
+
+
+def phase_stats(dev, data: bytes, one_blobs: dict, big_blobs: dict) -> None:
+    """(v) `encode_stats` on the card for the three codecs, on one 256 KiB
+    stream and on the corpus as one 2^22-quad stream, equal to
+    `stream_stats` of the card's encoded stream (stream 0 of phases c, k
+    and p; the 32 MiB containers of phases j, n and r), bigsort counted;
+    on the long stream its host wall beside one copy-free planner pass."""
+    import torch
+    from density_tpu_torch import stats
+    from density_tpu_torch.engine import layout
+    from density_tpu_torch.parallel import sharding
+    for codec in ("chameleon", "cheetah", "lion"):
+        pipe = sharding.codec_module(codec).PIPELINE
+        for what, chunk, blob in (
+                ("256 KiB stream", data[:STREAM], one_blobs[codec]),
+                ("corpus (2^22 quads)", data, big_blobs[codec])):
+            stream = payloads(blob)[0]
+            reset_counts()
+            t = time.perf_counter()
+            got = stats.encode_stats(codec, chunk, device=dev)
+            ms = (time.perf_counter() - t) * 1e3
+            launches = read_counts()["bigsort"]
+            want = stats.stream_stats(codec, chunk, stream)
+            if got != want:
+                raise AssertionError(f"(v) {codec} {what}: encode_stats "
+                                     f"{got} != stream_stats {want}")
+            if launches < 1:
+                raise AssertionError(f"(v) {codec} {what}: no bigsort launch")
+            plan = ""
+            if len(chunk) > STREAM:
+                padded = np.zeros((1, layout.bucket_bytes(
+                    len(chunk), pipe.BLOCK)), np.uint8)
+                padded[0, :len(chunk)] = np.frombuffer(chunk, np.uint8)
+                quads = layout.stage_quads(padded, dev)
+                nbytes = torch.tensor([len(chunk)], dtype=torch.int32,
+                                      device=dev)
+                bits = pipe.plan_fast(quads, nbytes)[5]  # warm
+                plan_ms = min(wall_ms(lambda: pipe.plan_fast(quads, nbytes))
+                              for _ in range(3))
+                stage_ms = min(wall_ms(lambda: layout.stage_quads(padded,
+                                                                  dev))
+                               for _ in range(3))
+                fsm_ms = min(wall_ms(lambda: layout.step_fsm(bits, nbytes,
+                                                             pipe.BLOCK))
+                             for _ in range(3))
+                t = time.perf_counter()
+                stats.encode_stats(codec, chunk, device=dev)
+                warm = (time.perf_counter() - t) * 1e3
+                plan = (f"; warm {warm:.3f} ms against {plan_ms:.3f} ms for "
+                        f"one copy-free plan of the staged row "
+                        f"({warm / plan_ms:.2f} plans), {stage_ms:.3f} ms "
+                        f"to stage it and {fsm_ms:.3f} ms for one host "
+                        f"replay of the protection FSM")
+            log(f"(v) {codec} encode_stats, {what}: equal to stream_stats "
+                f"of the card's stream (ratio {want.ratio:.4f}, "
+                f"{want.copy_blocks} copy blocks of {want.n_blocks}), "
+                f"bigsort launches {launches}, first call {ms:.3f} ms host "
+                f"wall{plan}")
+
+
+def phase_sessions(data: bytes) -> None:
+    """(w) Chunked sessions of the corpus in uneven seeded chunks (1 byte
+    to 1 MiB) equal to `native.encode` for each codec, decoded back in
+    other chunks; an LZ4 round trip of the corpus."""
+    from density_tpu_torch import native
+    from density_tpu_torch.stream import StreamDecoder, StreamEncoder
+    rng = np.random.default_rng(9)
+
+    def chunks(buf):
+        out, p = [], 0
+        while p < len(buf):
+            n = int(rng.choice([1, 7, 4095, 65536, 1 << 20, 300001]))
+            out.append(buf[p:p + n])
+            p += n
+        return out
+    for codec in ("chameleon", "cheetah", "lion"):
+        t = time.perf_counter()
+        with StreamEncoder(codec) as enc:
+            parts = chunks(data)
+            got = b"".join(enc.update(c) for c in parts) + enc.finish()
+        t_enc = time.perf_counter() - t
+        if got != native.encode(codec, data):
+            raise AssertionError(f"(w) {codec} session differs from "
+                                 "native.encode")
+        with StreamDecoder(codec) as dec:
+            back = b"".join(dec.update(c) for c in chunks(got)) + dec.finish()
+        if back != data:
+            raise AssertionError(f"(w) {codec} session decode differs")
+        log(f"(w) {codec} session: {len(parts)} chunks, {len(got)} bytes, "
+            f"equal to native.encode, decoded back exact; encode "
+            f"{len(data) / t_enc / 1e6:.3f} MB/s host")
+    t = time.perf_counter()
+    lz = native.lz4_compress(data)
+    t_lz = time.perf_counter() - t
+    if native.lz4_decompress(lz, len(data)) != data:
+        raise AssertionError("(w) lz4 round trip differs")
+    log(f"(w) lz4: {len(data)} -> {len(lz)} bytes (ratio "
+        f"{len(data) / len(lz):.4f}), round trip exact; compress "
+        f"{len(data) / t_lz / 1e6:.3f} MB/s host")
+
+
 def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1552,19 +1874,38 @@ def main() -> int:
     opt_counts = phase_options(dev, data, main_blob,
                                small_blobs[SMALL_STREAMS[0]])
     phase_api(dev, data)
-    phase_large_streams(dev, data)
+    big = {"chameleon": phase_large_streams(dev, data)[1][LARGE_STREAMS[1]]}
     cheetah_counts, cheetah_blob = phase_codec_main(dev, data, "cheetah")
     conv = {"cheetah": phase_codec_converging(dev, args.seed, "cheetah")}
     phase_cheetah_corpus_decode(dev, data, cheetah_blob)
-    phase_codec_sizes(dev, data, "cheetah", onehot=False)
+    big["cheetah"] = phase_codec_sizes(dev, data, "cheetah",
+                                       onehot=False)[2][LARGE_STREAMS[1]]
     phase_codec_edges(dev, rnd, "cheetah")
     lion_counts, lion_blob = phase_codec_main(dev, data, "lion")
     conv["lion"] = phase_codec_converging(dev, args.seed, "lion")
     done, n, rounds, dt = corpus_converged(dev, lion_blob, "lion")
     log(f"(q) lion corpus, {n} streams of 256 KiB, device decode at 12 "
         f"rounds: {done} of {n} converged ({rounds} rounds, {dt:.3f} s)")
-    _, lion_small_counts = phase_codec_sizes(dev, data, "lion", onehot=True)
+    _, lion_small_counts, lion_sizes = phase_codec_sizes(dev, data, "lion",
+                                                         onehot=True)
+    big["lion"] = lion_sizes[LARGE_STREAMS[1]]
     phase_codec_edges(dev, rnd, "lion")
+    one = {"chameleon": main_blob, "cheetah": cheetah_blob, "lion": lion_blob}
+    phase_shares(dev, data, one, conv)
+    from density_tpu_torch import container
+    rank_blobs = {}
+    for name, (d, stream) in rank_inputs(args.seed).items():
+        for codec in one:
+            if name == "corpus":
+                rank_blobs[name, codec] = one[codec]
+            elif name == "alphabet" and codec in conv:
+                rank_blobs[name, codec] = conv[codec][1]
+            else:
+                rank_blobs[name, codec] = container.compress(
+                    d, codec, stream, device=dev)
+    phase_processes(dev, args.seed, rank_blobs)
+    phase_stats(dev, data, one, big)
+    phase_sessions(data)
     # each kernel's count from its own path's counted run
     counts = {k: main_counts[k] for k in ("bigsort", "packroute", "unpack")}
     counts["pack"] = small_counts["pack"]

@@ -141,12 +141,16 @@ __global__ void __launch_bounds__(kClusterThreads, 2)
     store_elems(dst[a] + ((int64_t)row << log_n) + col0 + first, v[a], T);
 }
 
+// The cluster kernel's opt-in shared memory, set once per device.
+// Returns the CUDA error code.
 template <int NA, int NK>
 int cluster_setup() {
-  static const int rc = (int)cudaFuncSetAttribute(
-      cluster_kernel<NA, NK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)tile_smem(NA, kLogT));
-  return rc;
+  static std::atomic<int> done[kMaxDevices];
+  return per_device(done, [] {
+    return (int)cudaFuncSetAttribute(
+        cluster_kernel<NA, NK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)tile_smem(NA, kLogT));
+  });
 }
 
 // The launch of cluster_kernel<NA, NK> over S rows of 2^log_n (> 16384);

@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -300,10 +302,11 @@ __global__ void __launch_bounds__(kThreads, 4)
   cluster_wait();  // no CTA leaves while another may read its span_words
 }
 
-// The clusters of 8 CTAs that the card holds at once.
+// The clusters of 8 CTAs that the current device holds at once (0 where
+// the query fails), asked once per device.
 int resident_clusters() {
-  static int n = -1;
-  if (n < 0) {
+  static std::atomic<int> slots[kMaxDevices];
+  return per_device(slots, [] {
     cudaLaunchAttribute attr;
     attr.id = cudaLaunchAttributeClusterDimension;
     attr.val.clusterDim.x = kMaxCluster;
@@ -315,12 +318,11 @@ int resident_clusters() {
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
     int c = 0;
-    n = cudaOccupancyMaxActiveClusters(&c, packroute_kernel, &cfg) ==
-                cudaSuccess
-            ? c
-            : 0;
-  }
-  return n;
+    return cudaOccupancyMaxActiveClusters(&c, packroute_kernel, &cfg) ==
+                   cudaSuccess
+               ? c
+               : 0;
+  });
 }
 
 }  // namespace

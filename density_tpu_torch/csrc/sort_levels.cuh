@@ -21,7 +21,7 @@
 //
 // Everything here has internal linkage (the unnamed namespace, which the
 // including file reopens for its own code): each library keeps its own
-// instances. A template's static local (the `tile_setup` flag) would
+// instances. A template's static local (the `tile_setup` slots) would
 // otherwise be one symbol for every library loaded in the process, and
 // the second library would skip its own shared-memory attribute.
 
@@ -29,6 +29,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "per_device.cuh"
 
 namespace {
 
@@ -440,12 +442,16 @@ size_t tile_smem(int na, int log_t) {
   return (size_t)na * tile_pitch(log_t) * sizeof(int32_t);
 }
 
+// The tile kernel's opt-in shared memory, set once per device (the
+// attribute is the current device's). Returns the CUDA error code.
 template <int NA, int NK>
 int tile_setup() {
-  static const int rc = (int)cudaFuncSetAttribute(
-      tile_kernel<NA, NK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)tile_smem(NA, kMaxLogTile));
-  return rc;
+  static std::atomic<int> done[kMaxDevices];
+  return per_device(done, [] {
+    return (int)cudaFuncSetAttribute(
+        tile_kernel<NA, NK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)tile_smem(NA, kMaxLogTile));
+  });
 }
 
 template <int NA, int NK>

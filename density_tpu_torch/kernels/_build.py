@@ -108,6 +108,18 @@ def stream_ptr(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def launch(fn, what: str, device, *args) -> None:
+    """Calls the C entry point `fn(*args, stream)` on PyTorch's current
+    stream of `device`, with `device` made current for the call: the
+    CUDA runtime launches on the current device, and a kernel's
+    attributes and occupancy are the current device's. Raises on a CUDA
+    error."""
+    import torch
+    with torch.cuda.device(device):
+        rc = fn(*args, stream_ptr(device))
+    check(rc, what)
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr() if t is not None else None)
 

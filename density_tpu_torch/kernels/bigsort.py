@@ -64,10 +64,9 @@ def launch(name: str, arrays, n_keys: int):
             for a in srcs]
     pad = [None] * (3 - len(srcs))
     fn = _build.function(name, f"{name}_sort", 11, range(6, 10))
-    rc = fn(*[_build.ptr(a) for a in srcs], *pad,
-            *[_build.ptr(o) for o in outs], *pad,
-            len(srcs), n_keys, S, N, _build.stream_ptr(srcs[0].device))
-    _build.check(rc, name)
+    _build.launch(fn, name, srcs[0].device, *[_build.ptr(a) for a in srcs],
+                  *pad, *[_build.ptr(o) for o in outs], *pad, len(srcs),
+                  n_keys, S, N)
     return tuple(outs)
 
 

@@ -53,9 +53,8 @@ def pack(flags, pw, w0, w1, nbytes, *, q, sig_words, block, flag_bits):
             for a in (flags, pw, w0, w1, nbytes)]
     out = torch.empty((S, ow), dtype=torch.int32, device=flags.device)
     fn = _build.function("pack", "pack", 14, tuple(range(6, 13)))
-    rc = fn(*[_build.ptr(a) for a in args], _build.ptr(out), S, N, q,
-            sig_words, flag_bits, block, ow, _build.stream_ptr(flags.device))
-    _build.check(rc, "pack")
+    _build.launch(fn, "pack", flags.device, *[_build.ptr(a) for a in args],
+                  _build.ptr(out), S, N, q, sig_words, flag_bits, block, ow)
     launches += 1
     return out
 

@@ -29,7 +29,8 @@ MAX_K = 32  # the kernel's most clusters per stream
 launches = 0  # kernel launches through `pack` (see chip_smoke.py)
 # The kernel's clusters trade their totals through device words tagged
 # with the call's epoch: one buffer per (device, CUDA stream), which only
-# the kernel writes, and a counter that never repeats an epoch on it.
+# the kernel writes, and one counter for every device, which never
+# repeats an epoch on any buffer (all are dropped when it wraps).
 _tagged: dict = {}
 _epoch = 0
 
@@ -98,10 +99,10 @@ def pack(flags, pw, w0, w1, nbytes, *, q, sig_words, block, flag_bits):
                              device=flags.device)
         _tagged[key] = tagged
     fn = _build.function("packroute", "packroute", 16, tuple(range(7, 15)))
-    rc = fn(*[_build.ptr(a) for a in args], _build.ptr(out),
-            _build.ptr(tagged), S, N, q, sig_words, flag_bits, block, ow,
-            _epoch, stream)
-    _build.check(rc, "packroute")
+    _build.launch(fn, "packroute", flags.device,
+                  *[_build.ptr(a) for a in args], _build.ptr(out),
+                  _build.ptr(tagged), S, N, q, sig_words, flag_bits, block,
+                  ow, _epoch)
     launches += 1
     return out
 

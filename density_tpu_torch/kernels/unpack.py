@@ -104,11 +104,10 @@ def _launch(words, woff, is_copy, q, sig_words, flag_bits):
     outs = torch.empty((3, S, NB * q), dtype=torch.int32, device=dev)
     bad = torch.empty(1, dtype=torch.int32, device=dev)
     fn = _build.function("unpack", "unpack", 14, tuple(range(7, 13)))
-    rc = fn(_build.ptr(wd), _build.ptr(wo), _build.ptr(cp),
-            _build.ptr(outs[0]), _build.ptr(outs[1]), _build.ptr(outs[2]),
-            _build.ptr(bad), S, NB, W, q, sig_words, flag_bits,
-            _build.stream_ptr(dev))
-    _build.check(rc, "unpack")
+    _build.launch(fn, "unpack", dev, _build.ptr(wd), _build.ptr(wo),
+                  _build.ptr(cp), _build.ptr(outs[0]), _build.ptr(outs[1]),
+                  _build.ptr(outs[2]), _build.ptr(bad), S, NB, W, q,
+                  sig_words, flag_bits)
     launches += 1
     return outs[0], outs[1], outs[2], bad
 

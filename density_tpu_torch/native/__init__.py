@@ -47,6 +47,23 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dtpu_scan_many.argtypes = [
         ctypes.c_int, ctypes.c_char_p, i64p, i64p, i64p, i64p, vp, i64p,
         i64p, i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+    # the chunked sessions of `stream.py`
+    lib.dtpu_stream_new.restype = vp
+    lib.dtpu_stream_new.argtypes = [ctypes.c_int]
+    for op in ("free", "reset"):
+        fn = getattr(lib, f"dtpu_stream_{op}")
+        fn.restype = None
+        fn.argtypes = [vp]
+    for op in ("encode", "decode"):
+        fn = getattr(lib, f"dtpu_stream_{op}")
+        fn.restype = size_t
+        fn.argtypes = [vp, ctypes.c_char_p, size_t, vp, size_t, ctypes.c_int]
+    lib.dtpu_stream_held.restype = size_t
+    lib.dtpu_stream_held.argtypes = [vp, ctypes.c_int]
+    for op in ("compress", "decompress"):
+        fn = getattr(lib, f"dtpu_lz4_{op}")
+        fn.restype = size_t
+        fn.argtypes = [ctypes.c_char_p, size_t, vp, size_t]
     return lib
 
 
@@ -204,3 +221,39 @@ def scan(codec: str, data: bytes):
     if n == ctypes.c_size_t(-1).value:
         raise DecodeError(f"malformed {codec} stream")
     return in_off[:n], out_off[:n], is_copy[:n]
+
+
+def _require():
+    """The bound library; raises where there is none (the entry points
+    below have no pure-Python twin)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native runtime unavailable: " + (
+            str(_load_error) if _load_error is not None
+            else "disabled by DENSITY_TPU_NO_NATIVE=1"))
+    return lib
+
+
+def lz4_compress(data: bytes) -> bytes:
+    """The runtime's LZ4 block compress (a yardstick beside the density
+    codecs, not part of their format). Raises without the runtime."""
+    lib = _require()
+    data = bytes(data)
+    cap = len(data) + len(data) // 128 + 64
+    out = ctypes.create_string_buffer(cap)
+    n = lib.dtpu_lz4_compress(data, len(data), out, cap)
+    if n == 0 and len(data):
+        raise RuntimeError("lz4 compress overflow")
+    return out.raw[:n]
+
+
+def lz4_decompress(data: bytes, decoded_size: int) -> bytes:
+    """LZ4 block decompress of at most `decoded_size` bytes; raises
+    RuntimeError on a malformed block."""
+    lib = _require()
+    data = bytes(data)
+    out = ctypes.create_string_buffer(decoded_size + 16)
+    n = lib.dtpu_lz4_decompress(data, len(data), out, decoded_size + 16)
+    if n == ctypes.c_size_t(-1).value:
+        raise RuntimeError("malformed lz4 block")
+    return out.raw[:n]

@@ -1,22 +1,37 @@
-"""Container compression/decompression on one device.
+"""Container compression and decompression over devices and processes.
 
-Counterpart of the JAX package's `parallel/sharding.py` for the three
-codecs on one device. Streams form the leading (batch) axis of every
-tensor; the full streams run as one batch and the ragged final stream as
-its own batch at a capacity bucketed to its length.
+Counterpart of the JAX package's `parallel/sharding.py`. Streams form
+the leading (batch) axis of every tensor. In a `torch.distributed` run
+each process takes a contiguous part of the streams (`mesh.shares` over
+the processes), and splits its part again into contiguous shares, one
+for each of its devices (`mesh.resolve_devices`). Every share runs on its
+own device, one after another from one host thread; nothing crosses
+devices or processes inside the encode or the decode. Only the
+compressed or decoded bytes are gathered, in stream order
+(`all_gather_object` over the gloo group), so every process returns the
+whole container, or the whole data. A container does not depend on the
+number of devices or processes.
 
-Encode runs each codec's `PIPELINE` on the device; a batch whose fixed
-point does not converge is encoded by the native runtime instead.
+Encode runs each codec's `PIPELINE` on the device: a share's full
+streams as one batch; the ragged final stream as its own batch on the
+first device of the process that owns it, at a capacity bucketed to its
+length. A batch whose fixed point does not converge is encoded by the
+native runtime instead.
+
 Decode scans every stream on the host (`native.scan_many`, which also
-counts the predicted tokens), checks each stream's decoded length
-against the one it was given, and then takes one of two routes, as the
-JAX package's explicit-device route does: a cheetah or lion container
-whose predicted share is above `PREDICTED_DEVICE_CUTOFF` decodes on the
-native runtime's thread pool (where there is one); every other container
-decodes on the device, its words and flags read back in one copy, the
-ragged-tail bytes stamped on the host, and a cheetah or lion stream
-whose context fixpoint did not converge decoded again by the native
-runtime.
+counts the predicted tokens) in every process, checks each stream's
+decoded length against the one it was given, and then takes one of two
+routes for the whole container, as the JAX package's explicit-device
+route does: a cheetah or lion container whose predicted share is above
+`PREDICTED_DEVICE_CUTOFF` decodes on the native runtime's thread pool
+(where there is one); every other container decodes on the devices,
+each share's words and flags read back in one copy and joined in stream
+order, the ragged-tail bytes stamped on the host, and a cheetah or lion
+stream whose context fixpoint did not converge decoded again by the
+native runtime. The route is chosen from the whole container, so every
+share and every process takes the same one; the JAX package's
+multi-process decode always takes the device (`jax.process_count() ==
+1` gates its pool), and the bytes are the same either way.
 """
 
 from __future__ import annotations
@@ -32,7 +47,8 @@ from density_tpu_torch.container import (
 from density_tpu_torch.engine import layout, unlayout
 from density_tpu_torch.errors import DecodeError, EncodeError
 from density_tpu_torch.kernels import unpack
-from density_tpu_torch.parallel.mesh import resolve_device
+from density_tpu_torch.parallel.mesh import (
+    process_count, process_index, resolve_devices, shares)
 
 CODECS = {"chameleon": chameleon, "cheetah": cheetah, "lion": lion}
 
@@ -103,9 +119,38 @@ def _encode_batch_to_parts(codec, buf, offset, n, s_real, cap_bytes,
             for s in range(s_real)]
 
 
+def _part(S: int) -> tuple[int, int]:
+    """This process's contiguous part [lo, hi) of S streams."""
+    return shares(S, process_count())[process_index()]
+
+
+def _gather(work, error: type) -> list:
+    """Runs `work()` (this process's list of parts) and returns every
+    process's lists joined in rank (so stream) order. Every rank reaches
+    the gather, also one whose work raised, so a fault in one rank's part
+    raises on every rank (`error` on the others) and none waits for it."""
+    if process_count() == 1:
+        return work()
+    import torch.distributed as dist
+    try:
+        mine, fault = work(), None
+    except Exception as e:  # noqa: BLE001 - re-raised after the gather
+        mine, fault = None, e
+    every = [None] * process_count()
+    dist.all_gather_object(
+        every, (mine, None if fault is None else f"{type(fault).__name__}: "
+                                                   f"{fault}"))
+    if fault is not None:
+        raise fault
+    for rank, (_, what) in enumerate(every):
+        if what is not None:
+            raise error(f"rank {rank} failed: {what}")
+    return [p for parts, _ in every for p in parts]
+
+
 def compress(data: bytes, codec: str, stream_size: int, device=None) -> bytes:
     codec_module(codec)
-    dev = resolve_device(device)
+    devs = resolve_devices(device)
     block = SPECS[codec].block_size
     buf = np.frombuffer(bytes(data), dtype=np.uint8)
     n = buf.size
@@ -113,16 +158,25 @@ def compress(data: bytes, codec: str, stream_size: int, device=None) -> bytes:
         return build_header(codec, 0, stream_size, [])
     s_real = split_streams(n, stream_size)
     s_full = n // stream_size
-    tail = n - s_full * stream_size
-    parts = []
-    if s_full:
-        parts += _encode_batch_to_parts(
-            codec, buf, 0, s_full * stream_size, s_full,
-            layout.bucket_bytes(stream_size, block), stream_size, dev)
-    if tail:
-        cap_tail = layout.bucket_bytes(tail, block)
-        parts += _encode_batch_to_parts(codec, buf, s_full * stream_size,
-                                        tail, 1, cap_tail, cap_tail, dev)
+    lo, hi = _part(s_real)
+
+    def encode_part():
+        parts = []
+        cap = layout.bucket_bytes(stream_size, block)
+        for (a, b), dev in zip(
+                shares(max(0, min(hi, s_full) - lo), len(devs)), devs):
+            if b > a:
+                parts += _encode_batch_to_parts(
+                    codec, buf, (lo + a) * stream_size, (b - a) * stream_size,
+                    b - a, cap, stream_size, dev)
+        if s_full < s_real and lo <= s_full < hi:  # the ragged final stream
+            tail = n - s_full * stream_size
+            cap_tail = layout.bucket_bytes(tail, block)
+            parts += _encode_batch_to_parts(
+                codec, buf, s_full * stream_size, tail, 1, cap_tail,
+                cap_tail, devs[0])
+        return parts
+    parts = _gather(encode_part, EncodeError)
     if len(parts) != s_real:
         raise AssertionError("stream count mismatch")
     return build_header(codec, n, stream_size,
@@ -202,16 +256,10 @@ def decode_batch(words, woff, is_copy, nb_real, out_len,
     return out, None, ~ok
 
 
-def _finish(out_words, bad, redo, streams, out_lens, copyf, nb_real,
-            codec: str = "chameleon") -> list[bytes]:
-    """Device halfwords -> per-stream bytes. The halfwords and the flags
-    come back in one host copy; a set malformed flag raises DecodeError
-    before any bytes are returned, and a stream flagged for `redo` is
-    decoded by the native runtime instead. A ragged tail is stamped from
-    its stream's last bytes (stored raw) unless its last block is a copy
-    block, which holds them already."""
+def _fetch(out_words, bad, redo, max_words: int):
+    """One share's halfwords and flags in one host copy: (u16 (S,
+    max_words) halfwords, malformed flag, (S,) redo flags)."""
     S = out_words.shape[0]
-    max_words = (int(max(out_lens, default=0)) + 1) // 2
     flags = [f.reshape(-1) for f in (bad, redo) if f is not None]
     n_flag = sum(f.numel() for f in flags)
     host = torch.empty(S * max_words + n_flag, dtype=torch.int16,
@@ -222,10 +270,30 @@ def _finish(out_words, bad, redo, streams, out_lens, copyf, nb_real,
         host[S * max_words:].copy_(torch.cat(flags))
     host = host.cpu().numpy()
     tail = host[S * max_words:]
-    if bad is not None and tail[0]:
-        raise unpack.malformed()
     again = (tail[-S:] != 0) if redo is not None else np.zeros(S, bool)
-    out_np = host[:S * max_words].view("<u2").reshape(S, max_words)
+    return (host[:S * max_words].view("<u2").reshape(S, max_words),
+            bad is not None and bool(tail[0]), again)
+
+
+def _finish(out_words, bad, redo, streams, out_lens, copyf, nb_real,
+            codec: str = "chameleon") -> list[bytes]:
+    """Device halfwords -> per-stream bytes. `out_words`, `bad` and
+    `redo` are one share's (`decode_batch`'s results), or lists of the
+    shares' in stream order. Each share's halfwords and flags come back
+    in one host copy and are joined in stream order; a set malformed
+    flag raises DecodeError before any bytes are returned, and a stream
+    flagged for `redo` is decoded by the native runtime instead. A ragged
+    tail is stamped from its stream's last bytes (stored raw) unless its
+    last block is a copy block, which holds them already."""
+    if isinstance(out_words, torch.Tensor):
+        out_words, bad, redo = [out_words], [bad], [redo]
+    max_words = (int(max(out_lens, default=0)) + 1) // 2
+    fetched = [_fetch(w, b, r, max_words)
+               for w, b, r in zip(out_words, bad, redo)]
+    if any(f[1] for f in fetched):
+        raise unpack.malformed()
+    out_np = np.concatenate([f[0] for f in fetched])
+    again = np.concatenate([f[2] for f in fetched])
     parts = []
     for s, stream in enumerate(streams):
         ol = int(out_lens[s])
@@ -257,15 +325,58 @@ def _streams(data: bytes):
     return codec, original_len, streams, out_lens
 
 
+def _stage_shares(streams, out_lens, woff, copyf, nb_real, lo, hi, devs):
+    """The device inputs of streams [lo, hi) split into one share per
+    device: [(a, b, device_args)], device_args None for a share whose
+    streams all decode to 0 bytes; empty shares left out."""
+    staged = []
+    for (a, b), dev in zip(shares(hi - lo, len(devs)), devs):
+        a, b = lo + a, lo + b
+        if b > a:
+            staged.append((a, b, _stage(streams[a:b], out_lens[a:b],
+                                        woff[a:b], copyf[a:b], nb_real[a:b],
+                                        dev)
+                           if any(out_lens[a:b]) else None))
+    return staged
+
+
+def _decode_shares(codec, staged, streams, out_lens, copyf, nb_real):
+    """Decode staged shares (`_stage_shares`), each on its device, and
+    return the bytes of their streams in order."""
+    results = [decode_batch(*args, codec) for _, _, args in staged
+               if args is not None]
+    live = [(a, b) for a, b, args in staged if args is not None]
+    got = iter(_finish(
+        [r[0] for r in results], [r[1] for r in results],
+        [r[2] for r in results],
+        [streams[s] for a, b in live for s in range(a, b)],
+        np.concatenate([out_lens[a:b] for a, b in live]),
+        np.concatenate([copyf[a:b] for a, b in live]),
+        np.concatenate([nb_real[a:b] for a, b in live]),
+        codec) if live else [])
+    return [next(got) if args is not None else b""
+            for a, b, args in staged for _ in range(a, b)]
+
+
 def decode_prep(data: bytes, device=None):
-    """Header parse, host block scan and staging of the device inputs.
-    Returns (device_args, streams, host_meta), host_meta = (codec,
-    original_len, out_lens, copyf, nb_real, predicted share)."""
-    dev = resolve_device(device)
+    """Header parse, host block scan and staging of this process's
+    streams. Returns (device_args, streams, host_meta), host_meta =
+    (codec, original_len, out_lens, copyf, nb_real, predicted share).
+    With one device, device_args are the inputs of `decode_batch` on
+    it; with None or a list of devices, a list of (lo, hi, inputs) of
+    the shares, inputs None where every stream decodes to 0 bytes."""
+    one = device is not None and not isinstance(device, (list, tuple))
+    devs = resolve_devices(device)
     codec, original_len, streams, out_lens = _streams(data)
     codec_module(codec, DecodeError)
     woff, copyf, nb_real, pred_frac = _scan(codec, streams, out_lens)
-    args = _stage(streams, out_lens, woff, copyf, nb_real, dev)
+    lo, hi = _part(len(streams))
+    if one:
+        args = _stage(streams[lo:hi], out_lens[lo:hi], woff[lo:hi],
+                      copyf[lo:hi], nb_real[lo:hi], devs[0])
+    else:
+        args = _stage_shares(streams, out_lens, woff, copyf, nb_real, lo,
+                             hi, devs)
     return args, streams, (codec, original_len, out_lens, copyf, nb_real,
                            pred_frac)
 
@@ -283,18 +394,21 @@ def decompress(data: bytes, device=None) -> bytes:
     codec, original_len, streams, out_lens = _streams(data)
     if original_len == 0:
         return b""
-    dev = resolve_device(device)
+    devs = resolve_devices(device)
     codec_module(codec, DecodeError)
     woff, copyf, nb_real, pred_frac = _scan(codec, streams, out_lens)
-    if route(codec, pred_frac) == "pool":
-        live = [s for s in range(len(streams)) if out_lens[s] > 0]
-        parts = native.decode_many(codec, [streams[s] for s in live],
-                                   [int(out_lens[s]) for s in live])
-    else:
-        args = _stage(streams, out_lens, woff, copyf, nb_real, dev)
-        parts = _finish(*decode_batch(*args, codec), streams,
-                        out_lens, copyf, nb_real, codec)
-    out = b"".join(parts)
+    lo, hi = _part(len(streams))
+
+    def decode_part():
+        if route(codec, pred_frac) == "pool":
+            live = [s for s in range(lo, hi) if out_lens[s] > 0]
+            return native.decode_many(codec, [streams[s] for s in live],
+                                      [int(out_lens[s]) for s in live])
+        staged = _stage_shares(streams, out_lens, woff, copyf, nb_real, lo,
+                               hi, devs)
+        return _decode_shares(codec, staged, streams, out_lens, copyf,
+                              nb_real)
+    out = b"".join(_gather(decode_part, DecodeError))
     if len(out) != original_len:
         raise DecodeError(f"decoded {len(out)} bytes, expected {original_len}")
     return out
@@ -302,9 +416,10 @@ def decompress(data: bytes, device=None) -> bytes:
 
 def decode_streams(streams, out_lens=None, device=None,
                    codec: str = "chameleon") -> list[bytes]:
-    """Decode bare streams on the device; out_lens (the decoded sizes)
-    come from the block scan when not given."""
-    dev = resolve_device(device)
+    """Decode bare streams on the device, or in shares over a list of
+    devices (this process's streams alone: no gather); out_lens (the
+    decoded sizes) come from the block scan when not given."""
+    devs = resolve_devices(device)
     codec_module(codec, DecodeError)
     if out_lens is None:
         out_lens = []
@@ -316,7 +431,8 @@ def decode_streams(streams, out_lens=None, device=None,
             out_lens.append(host_scan.decoded_length(s, io, oo, cp, codec))
     if not any(out_lens):
         return [b""] * len(streams)
+    out_lens = np.asarray(out_lens, np.int64)
     woff, copyf, nb_real, _ = _scan(codec, streams, out_lens)
-    args = _stage(streams, out_lens, woff, copyf, nb_real, dev)
-    return _finish(*decode_batch(*args, codec), streams, out_lens,
-                   copyf, nb_real, codec)
+    staged = _stage_shares(streams, out_lens, woff, copyf, nb_real, 0,
+                           len(streams), devs)
+    return _decode_shares(codec, staged, streams, out_lens, copyf, nb_real)

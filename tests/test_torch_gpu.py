@@ -636,3 +636,65 @@ def test_lion_encode_raw_on_card(cuda, n):
     enc = api.encode_raw(data, "lion", device=cuda)
     assert enc == api.encode_raw(data, "lion", backend="native")
     assert api.decode_raw(enc, "lion", device=cuda) == data
+
+
+@pytest.mark.parametrize("codec", ["chameleon", "cheetah", "lion"])
+def test_shares_on_card_give_one_device_containers(cuda, codec, monkeypatch):
+    """Two shares on one card (the list names it twice): the container of
+    one device, each kernel of the path launched once a share at least,
+    and decompress through the shares on both routes."""
+    from density_tpu_torch.parallel import sharding
+    data = _data(21, 5 * 65536 + 999)
+    one = container.compress(data, codec, 65536, device=cuda)
+    before = bigsort.launches, packroute.launches
+    two = container.compress(data, codec, 65536, device=[cuda, cuda])
+    assert two == one
+    assert bigsort.launches - before[0] >= 2
+    assert packroute.launches - before[1] >= 2
+    for cutoff in (-1.0, 1.0):  # the pool, then the device
+        monkeypatch.setattr(sharding, "PREDICTED_DEVICE_CUTOFF", cutoff)
+        assert container.decompress(two, device=[cuda, cuda]) == data
+
+
+@pytest.mark.parametrize("codec", ["chameleon", "cheetah", "lion"])
+def test_encode_stats_on_card(cuda, codec):
+    """encode_stats on the card equals stream_stats of the card's stream,
+    through bigsort."""
+    from density_tpu_torch import api, stats
+    data = _data(22, 2 * 65536 + 77)
+    before = bigsort.launches
+    got = stats.encode_stats(codec, data, device=cuda)
+    assert bigsort.launches > before
+    enc = api.encode_raw(data, codec, device=cuda)
+    assert got == stats.stream_stats(codec, data, enc)
+    assert got == stats.encode_stats(codec, data, device="cpu")
+
+
+def test_kernels_on_a_second_card():
+    """Every kernel on the second card's tensors, against its plain
+    version there, and containers over every card equal to one card's:
+    the per-device shared-memory attributes and occupancy, and the device
+    made current for each launch."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    second = devs[1]
+    rng = np.random.default_rng(23)
+    for S, N, n_keys, n_arr in ((4, 16384, 2, 3), (2, 1 << 17, 1, 2)):
+        arrs = [a.to(second) for a in _sort_inputs(rng, S, N, n_keys, n_arr,
+                                                   True)]
+        for mod in (bigsort, bitonic):
+            got = mod.sort(*arrs, n_keys=n_keys)
+            torch.cuda.synchronize(second)
+            for g, w in zip(got, mod.sort_plain(*arrs, n_keys=n_keys)):
+                assert g.device == second and torch.equal(g, w)
+    data = _data(24, 9 * 65536 + 4321)
+    for codec in ("chameleon", "cheetah", "lion"):
+        one = container.compress(data, codec, 65536, device=devs[0])
+        assert container.compress(data, codec, 65536, device=devs) == one
+        assert container.compress(data[:65536], codec, 65536,
+                                  device=second) == container.compress(
+            data[:65536], codec, 65536, device="cpu")
+        assert container.decompress(one, device=devs) == data
+    blob = container.compress(data, "chameleon", 16384, device=second)
+    assert container.decompress(blob, device=second) == data
