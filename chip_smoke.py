@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`density_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--out DIR] [--seed N]
+    python3 chip_smoke.py [--out DIR] [--seed N] [--parent DIR]
 
 Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
   (a) build the five CUDA kernels from `density_tpu_torch/csrc/` and the
@@ -84,13 +84,23 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
       "onehot";
   (s) lion on random and mixed inputs decoded on both routes, and
       one-shot streams;
-  (t) the corpus in 256 KiB streams in 2 shares on the card (and over
-      every card where there are several) for the three codecs: each
-      container equal to (c)'s, (k)'s or (p)'s, decompress through the
-      shares (cheetah and lion also on the device route, on (l)'s and
-      (q)'s input), every kernel of the path launched at least once per
-      share; compress and decompress timed on one device and in 2
-      shares, in turns;
+  (t) shares on the card, run at once (a worker thread and a CUDA
+      stream each): the corpus in 256 KiB streams in 2 and 4 shares on
+      the card (and over every card where there are several) for the
+      three codecs, 10 round trips each: every container equal to (c)'s,
+      (k)'s or (p)'s, decompress through the shares (cheetah and lion
+      also on the device route, on (l)'s and (q)'s input), every kernel
+      of the path launched at least once per share; chameleon in 2
+      shares in 16 KiB streams (pack) and under DENSITY_TPU_SORT=bitonic,
+      and in 4 shares of 1 MiB streams (packroute's several clusters a
+      stream, launched from several streams);
+      the share of each call's wall in which two or more share tasks
+      were in flight (above 0 for every 2-share compress); host syncs and
+      launches per call on one device (with `--parent DIR`, equal to that
+      tree's) and in shares, where no worker may wait for the card while
+      it holds the host's turn (`density_tpu_torch/hostsync.py`);
+      compress and decompress timed on one device and in 2 and 4 shares,
+      in turns (`tools/share_costs.py` takes these walls apart);
   (u) two `torch.distributed` ranks (gloo, torchrun's environment, both
       on `cuda:0` with one card) compress and decompress the corpus, (l)'s
       seeded input and the JAX package's 97-value multi-chip input for
@@ -110,6 +120,7 @@ register report to `DIR/ptxas.txt` and the profiles to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -319,24 +330,39 @@ def geometry_blocks(rng, S: int, NB: int, q: int, sig_words: int):
     return [torch.from_numpy(x) for x in (words, woff, is_copy)]
 
 
-def host_syncs(fn) -> int:
+def host_syncs(fn, held: list | None = None) -> int:
     """The host syncs that PyTorch's CUDA sync debug mode reports in one
     warm call of `fn` (it sees PyTorch's own syncs: copies to the host,
-    `.item()`, stream synchronisation)."""
+    `.item()`, stream synchronisation), the workers' too. With `held`,
+    appends the port's line of each sync that a share's worker made while
+    it held the host's turn (`density_tpu_torch.hostsync`)."""
+    import traceback
     import warnings
     import torch
+    if held is not None:
+        from density_tpu_torch.hostsync import holds_turn
     fn()
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    syncs = []
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" in str(message):
+            syncs.append(held is not None and holds_turn() and next(
+                (f"{f.filename}:{f.lineno}"
+                 for f in reversed(traceback.extract_stack())
+                 if "density_tpu_torch" in f.filename), "outside the port"))
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = seen
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return sum("synchronizing CUDA operation" in str(w.message)
-               for w in caught)
+    if held is not None:
+        held += [s for s in syncs if s]
+    return len(syncs)
 
 
 # ---------------------------------------------------------------- phases
@@ -1563,62 +1589,288 @@ def wall_ms(fn) -> float:
     return (time.perf_counter() - t) * 1e3
 
 
-def phase_shares(dev, data: bytes, blobs: dict, conv: dict) -> dict:
-    """(t) The corpus in 256 KiB streams in 2 shares on the card (and over
-    every card where there are several), each codec's container equal to
-    its one-device phase's, decompress through the shares (cheetah and
-    lion also on the device route, on phase l's and q's input); every
-    kernel of the one-device path launched at least once per share.
-    Times compress and decompress on one device against 2 shares, in
-    turns. Returns the 2-share counts by codec."""
+SHARE_LISTS = (2, 4)  # shares on the one card of phase (t)
+SHARE_REPEATS = 10  # round trips of each container in shares (t)
+# The ratios of the 2-share wall to the one-device wall when one host
+# thread ran the shares in turn (two calls on an H100 80GB HBM3, 700 W;
+# PERF.md section 6)
+IN_TURN_RATIOS = {"chameleon": ("0.951-1.011x", "1.106-1.121x"),
+              "cheetah": ("1.067-1.161x", "1.035-1.047x"),
+              "lion": ("0.928-0.968x", "0.927-1.051x")}
+
+
+@contextlib.contextmanager
+def share_spans():
+    """Records each share task's host start and end (`time.perf_counter`)
+    as `sharding` runs it through `mesh.run_shares`: yields the list of
+    (start, end) pairs."""
+    from density_tpu_torch.parallel import sharding
+    spans, run = [], sharding.run_shares
+
+    def timed(fn):
+        def task():
+            t = time.perf_counter()
+            try:
+                return fn()
+            finally:
+                spans.append((t, time.perf_counter()))
+        return task
+    sharding.run_shares = lambda devs, tasks: run(
+        devs, [(d, timed(fn)) for d, fn in tasks])
+    try:
+        yield spans
+    finally:
+        sharding.run_shares = run
+
+
+def overlap(spans, wall_s: float) -> float:
+    """The share of `wall_s` in which at least two of `spans` were in
+    flight."""
+    events = sorted([(a, 1) for a, _ in spans] + [(b, -1) for _, b in spans])
+    depth, both = 0, 0.0
+    for (t, d), (t_next, _) in zip(events, events[1:]):
+        depth += d
+        if depth >= 2:
+            both += t_next - t
+    return both / wall_s
+
+
+def spanned(fn):
+    """(result, overlap share, tasks) of one call of `fn`."""
+    with share_spans() as spans:
+        t = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t
+    return out, overlap(spans, wall), len(spans)
+
+
+def one_device_counts(seed: int = 0) -> dict:
+    """Host syncs (CUDA's sync debug mode) and kernel launches of one
+    compress and one decompress on one card, for each codec: the corpus
+    in 256 KiB streams (cheetah and lion decompress it on the host pool)
+    and, for cheetah and lion, phase l's seeded input (the device route).
+    Uses only what the tree before the shares' workers has too, so
+    `--parent` runs it there."""
     import torch
     from density_tpu_torch import container
-    lists = {"2 shares": [dev, dev]}
+    from density_tpu_torch.kernels import _build
+    _build.build()
+    dev = torch.device("cuda")
+    inputs = {"corpus": corpus_bytes(), "alphabet": alphabet_input(seed)}
+    out = {}
+    for codec in ("chameleon", "cheetah", "lion"):
+        for name, data in inputs.items():
+            if codec == "chameleon" and name == "alphabet":
+                continue
+            blob = container.compress(data, codec, STREAM, device=dev)
+            for what, fn in (
+                    ("compress", lambda: container.compress(
+                        data, codec, STREAM, device=dev)),
+                    ("decompress", lambda: container.decompress(
+                        blob, device=dev))):
+                fn()
+                torch.cuda.synchronize()
+                reset_counts()
+                fn()
+                torch.cuda.synchronize()
+                out[f"{codec} {name} {what}"] = dict(
+                    syncs=host_syncs(fn), launches=read_counts())
+    return out
+
+
+COUNT_WORKER = """
+import json, os, runpy, sys
+sys.path.insert(0, os.getcwd())
+smoke = runpy.run_path(os.environ["SMOKE_SCRIPT"])
+print(json.dumps(smoke["one_device_counts"](int(os.environ["SMOKE_SEED"]))))
+"""
+
+
+def parent_counts(parent: str, seed: int) -> dict:
+    """`one_device_counts` run on the tree in `parent` (its package, its
+    own kernel build), in a process of its own."""
+    env = dict(os.environ, SMOKE_SCRIPT=os.path.abspath(__file__),
+               SMOKE_SEED=str(seed))
+    p = subprocess.run([sys.executable, "-c", COUNT_WORKER], cwd=parent,
+                       env=env, capture_output=True, text=True,
+                       timeout=RANK_TIMEOUT)
+    if p.returncode != 0:
+        raise AssertionError(f"(t) the parent's counts failed "
+                             f"({p.returncode}): {p.stderr[-3000:]}")
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+def phase_shares(dev, data: bytes, blobs: dict, conv: dict,
+                 small_blob: bytes, mib_blob: bytes, parent: str | None,
+                 seed: int) -> dict:
+    """(t) Shares on the card, run at once (a worker thread and a CUDA
+    stream each): each codec's corpus in 256 KiB streams in 2 and 4
+    shares (and over every card where there are several), compressed and
+    decompressed SHARE_REPEATS times, each container equal to its
+    one-device phase's (c, k, p) and each round trip exact; cheetah and
+    lion also decoded on the device route through the shares (phase l's
+    and q's input); chameleon in 16 KiB streams (pack) and under
+    DENSITY_TPU_SORT=bitonic in 2 shares, and in 1 MiB streams in 4.
+    Every kernel of a path is launched at least once a share. Prints the
+    share of each call's wall in which two or more share tasks were in
+    flight (each task's host start and end), which must be above 0 for
+    every 2-share compress; the host syncs and launches per call; and the
+    walls on one device and in 2 and 4 shares, in turns. With `parent`,
+    the one-device counts must equal that tree's. Returns the 2-share
+    counts by codec."""
+    import torch
+    from density_tpu_torch import container
+    lists = {f"{k} shares": [dev] * k for k in SHARE_LISTS}
     if torch.cuda.device_count() > 1:
         lists["every card"] = [torch.device("cuda", i)
                                for i in range(torch.cuda.device_count())]
     counts = {}
     for codec, blob in blobs.items():
         for what, devs in lists.items():
-            reset_counts()
-            got = container.compress(data, codec, STREAM, device=devs)
-            back = container.decompress(got, device=devs)
-            c = read_counts()
-            if got != blob:
-                raise AssertionError(f"{codec} in {what}: the container "
-                                     "differs from one device's")
-            if back != data:
-                raise AssertionError(f"{codec} in {what}: round trip differs")
-            extra = ""
-            if codec != "chameleon":  # the device route through the shares
-                conv_data, conv_blob, _ = conv[codec]
-                if container.decompress(conv_blob, device=devs) != conv_data:
-                    raise AssertionError(f"{codec} in {what}: the device "
-                                         "route differs")
-                c = read_counts()
-                extra = " and its alphabet input on the device route"
+            overlaps = {"compress": [], "decompress": []}
+            for rep in range(SHARE_REPEATS):
+                reset_counts()
+                got, ov, n_c = spanned(lambda: container.compress(
+                    data, codec, STREAM, device=devs))
+                if got != blob:
+                    raise AssertionError(f"(t) {codec} in {what}, round "
+                                         f"{rep}: the container differs "
+                                         "from one device's")
+                if ov <= 0 and len(devs) == 2:
+                    raise AssertionError(f"(t) {codec} in {what}, round "
+                                         f"{rep}: no two shares ran at once")
+                overlaps["compress"].append(ov)
+                back, ov, n_d = spanned(lambda: container.decompress(
+                    got, device=devs))
+                if back != data:
+                    raise AssertionError(f"(t) {codec} in {what}, round "
+                                         f"{rep}: round trip differs")
+                if codec != "chameleon":  # the device route through shares
+                    conv_data, conv_blob, _ = conv[codec]
+                    back, ov, n_d = spanned(lambda: container.decompress(
+                        conv_blob, device=devs))
+                    if back != conv_data:
+                        raise AssertionError(f"(t) {codec} in {what}, round "
+                                             f"{rep}: the device route "
+                                             "differs")
+                overlaps["decompress"].append(ov)
+                if rep == 0:
+                    c = read_counts()
             low = {k: c[k] for k in PATH_KERNELS[codec] if c[k] < len(devs)}
             if low:
-                raise AssertionError(f"{codec} in {what}: kernels launched "
-                                     f"fewer times than shares: {low}")
+                raise AssertionError(f"(t) {codec} in {what}: kernels "
+                                     "launched fewer times than shares: "
+                                     f"{low}")
             counts.setdefault(codec, c)
-            log(f"(t) {codec} corpus in {what} ({len(devs)} devices): "
-                f"container equal to one device's, round trip exact{extra}; "
-                f"launches {c}")
-        runs = {"one": ([], [dev]), "two": ([], [dev, dev])}
-        for turn in ("one", "two", "two", "one"):
-            ms, devs = runs[turn]
-            enc = wall_ms(lambda: container.compress(data, codec, STREAM,
-                                                     device=devs))
-            dec = wall_ms(lambda: container.decompress(blob, device=devs))
-            ms.append((enc, dec))
-        (e1, d1), (e2, d2) = (np.mean(runs[k][0], axis=0)
-                              for k in ("one", "two"))
-        log(f"(t) {codec} host wall, mean of 2 turns (one, two, two, one): "
-            f"compress {e1:.3f} ms on one device, {e2:.3f} ms in 2 shares "
-            f"({e2 / e1:.3f}x); decompress {d1:.3f} and {d2:.3f} ms "
-            f"({d2 / d1:.3f}x)")
+            per_share = {k: v / len(devs) for k, v in c.items() if v}
+            dec_what = ("decompress" if codec == "chameleon" else
+                        "device-route decompress of the alphabet input")
+            log(f"(t) {codec} corpus in {what} ({len(devs)} devices, "
+                f"{n_c} compress tasks, {n_d} decompress tasks): "
+                f"{SHARE_REPEATS} round trips, every container equal to one "
+                f"device's, every round trip exact; two or more tasks in "
+                f"flight for {fmt_range(overlaps['compress'])} of the "
+                f"compress wall and {fmt_range(overlaps['decompress'])} of "
+                f"the {dec_what} wall; launches of the first round {c}, "
+                f"{per_share} a share")
+        share_walls(dev, data, codec, blob)
+    share_options(dev, data, blobs["chameleon"], small_blob, mib_blob)
+    mine = one_device_counts(seed)
+    for name, c in mine.items():
+        log(f"(t) one device, {name}: {c['syncs']} host syncs, launches "
+            f"{c['launches']}")
+    for k in SHARE_LISTS:
+        devs = [dev] * k
+        for codec, blob in blobs.items():
+            held = []
+            syncs = (host_syncs(lambda: container.compress(
+                data, codec, STREAM, device=devs), held), host_syncs(
+                lambda: container.decompress(
+                    blob if codec == "chameleon" else conv[codec][1],
+                    device=devs), held))
+            if held:
+                raise AssertionError(f"(t) {codec} in {k} shares: host "
+                                     "syncs while a worker held the host's "
+                                     f"turn, at {sorted(set(held))}")
+            log(f"(t) {codec} in {k} shares: host syncs per compress "
+                f"{syncs[0]}, per "
+                f"{'' if codec == 'chameleon' else 'device-route '}"
+                f"decompress {syncs[1]} (the workers' warnings counted), "
+                f"none while a worker held the host's turn")
+    if parent:
+        theirs = parent_counts(parent, seed)
+        if theirs != mine:
+            raise AssertionError(f"(t) one-device counts differ from the "
+                                 f"parent's: {theirs} != {mine}")
+        log(f"(t) one-device host syncs and launches equal those of the "
+            f"tree in {parent} ({len(mine)} calls)")
     return counts
+
+
+def fmt_range(xs) -> str:
+    return f"{min(xs):.3f}-{max(xs):.3f} (mean {np.mean(xs):.3f})"
+
+
+def share_walls(dev, data: bytes, codec: str, blob: bytes) -> None:
+    """Host walls of compress and decompress of the corpus on one device,
+    in 2 and in 4 shares, in turns (one, two, four, four, two, one)."""
+    from density_tpu_torch import container
+    runs = {1: [], 2: [], 4: []}
+    for k in (1, 2, 4, 4, 2, 1):
+        devs = [dev] * k
+        runs[k].append((
+            wall_ms(lambda: container.compress(data, codec, STREAM,
+                                               device=devs)),
+            wall_ms(lambda: container.decompress(blob, device=devs))))
+    (e1, d1), (e2, d2), (e4, d4) = (np.mean(runs[k], axis=0)
+                                    for k in (1, 2, 4))
+    log(f"(t) {codec} host wall, mean of 2 turns (one, two, four, four, "
+        f"two, one): compress {e1:.3f} ms on one device, {e2:.3f} ms in 2 "
+        f"shares ({e2 / e1:.3f}x; in turn {IN_TURN_RATIOS[codec][0]}), "
+        f"{e4:.3f} ms in 4 ({e4 / e1:.3f}x); decompress {d1:.3f}, "
+        f"{d2:.3f} ({d2 / d1:.3f}x; in turn {IN_TURN_RATIOS[codec][1]}) "
+        f"and {d4:.3f} ms ({d4 / d1:.3f}x)")
+
+
+def share_options(dev, data: bytes, main_blob: bytes, small_blob: bytes,
+                  mib_blob: bytes) -> None:
+    """Chameleon in 2 shares in 16 KiB streams (the pack kernel) and in
+    256 KiB streams under DENSITY_TPU_SORT=bitonic (the bitonic kernel),
+    and in 4 shares of 1 MiB streams (3 streams a share: packroute with
+    several clusters a stream, whose launches on the shares' streams run
+    in launch order): each container equal to one device's, the kernel
+    launched at least once a share, the tasks in flight at once."""
+    from density_tpu_torch import container
+    for what, stream, want, kernel, devs in (
+            ("16 KiB streams", SMALL_STREAMS[1], small_blob, "pack",
+             [dev] * 2),
+            ("DENSITY_TPU_SORT=bitonic", STREAM, main_blob, "bitonic",
+             [dev] * 2),
+            ("1 MiB streams", LARGE_STREAMS[0], mib_blob, "packroute",
+             [dev] * 4)):
+        reset_counts()
+        if kernel == "bitonic":
+            os.environ["DENSITY_TPU_SORT"] = "bitonic"
+        try:
+            got, ov, n = spanned(lambda: container.compress(
+                data, "chameleon", stream, device=devs))
+            back, ov_d, _ = spanned(lambda: container.decompress(
+                got, device=devs))
+        finally:
+            os.environ.pop("DENSITY_TPU_SORT", None)
+        c = read_counts()
+        if got != want or back != data:
+            raise AssertionError(f"(t) chameleon in {len(devs)} shares, "
+                                 f"{what}: differs from one device's")
+        if c[kernel] < len(devs) or ov <= 0:
+            raise AssertionError(f"(t) chameleon in {len(devs)} shares, "
+                                 f"{what}: {kernel} launched {c[kernel]} "
+                                 f"times, overlap {ov}")
+        log(f"(t) chameleon in {len(devs)} shares, {what}: container equal "
+            f"to one "
+            f"device's, round trip exact; {n} tasks, two or more in flight "
+            f"for {ov:.3f} of the compress wall and {ov_d:.3f} of the "
+            f"decompress wall; launches {c}")
 
 
 RANK_WORKER = """
@@ -1834,6 +2086,10 @@ def main() -> int:
                     help="directory for the compiler and profiler reports")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the input of phases (l) and (q)")
+    ap.add_argument("--parent", default=None,
+                    help="a tree whose one-device host syncs and launches "
+                         "phase (t) must equal (as `one_device_counts` "
+                         "counts them there)")
     args = ap.parse_args()
     OUT_DIR = args.out
     import torch
@@ -1874,7 +2130,8 @@ def main() -> int:
     opt_counts = phase_options(dev, data, main_blob,
                                small_blobs[SMALL_STREAMS[0]])
     phase_api(dev, data)
-    big = {"chameleon": phase_large_streams(dev, data)[1][LARGE_STREAMS[1]]}
+    large_blobs = phase_large_streams(dev, data)[1]
+    big = {"chameleon": large_blobs[LARGE_STREAMS[1]]}
     cheetah_counts, cheetah_blob = phase_codec_main(dev, data, "cheetah")
     conv = {"cheetah": phase_codec_converging(dev, args.seed, "cheetah")}
     phase_cheetah_corpus_decode(dev, data, cheetah_blob)
@@ -1891,7 +2148,8 @@ def main() -> int:
     big["lion"] = lion_sizes[LARGE_STREAMS[1]]
     phase_codec_edges(dev, rnd, "lion")
     one = {"chameleon": main_blob, "cheetah": cheetah_blob, "lion": lion_blob}
-    phase_shares(dev, data, one, conv)
+    phase_shares(dev, data, one, conv, small_blobs[SMALL_STREAMS[1]],
+                 large_blobs[LARGE_STREAMS[0]], args.parent, args.seed)
     from density_tpu_torch import container
     rank_blobs = {}
     for name, (d, stream) in rank_inputs(args.seed).items():

@@ -42,6 +42,7 @@ from density_tpu_torch.engine.grouping import (
     ctx_fill, hash_quads, mru2_state_in_group, seg_mtf2_before,
     seg_mtf2_before_packed, seg_sel2_before, seg_selq_before, shift_right)
 from density_tpu_torch.engine.mtf import mtf_depths_in_group, mtf_depths_sorted
+from density_tpu_torch.hostsync import read
 from density_tpu_torch.kernels.packroute import signature_words
 
 Q = SPEC.quads_per_block  # 16
@@ -256,7 +257,7 @@ def resolve(flags, w0, w1, valid, max_rounds: int = MAX_ROUNDS):
     ck2 = ((lidx << 5) | (kind << 3) | depth).to(torch.int32)
     changed = torch.ones(S, dtype=torch.bool, device=dev)
     rounds = 0
-    while rounds < max_rounds and (rounds == 0 or bool(changed.any())):
+    while rounds < max_rounds and (rounds == 0 or bool(read(changed.any()))):
         ctx = ctx_fill(hash_quads(quads), valid)
         ck_s, ck2_s, q_s = sort(torch.where(valid, ctx, 1 << 16), ck2, quads,
                                 n_keys=2)

@@ -36,6 +36,7 @@ import torch
 
 from density_tpu_torch.engine.grouping import hash_quads
 from density_tpu_torch.engine.protection import replay_fsm
+from density_tpu_torch.hostsync import masked, read, to_card
 from density_tpu_torch.kernels import pack, packroute
 
 # Plans of the fixed point over the copy-block set before the batch goes
@@ -133,8 +134,8 @@ def plan_masked(pipe: Pipeline, quads, nbytes, copy):
 
 def step_fsm(bits, nbytes, BLOCK):
     """Copy decisions of the protection FSM (host), real blocks only."""
-    bits_np = bits.cpu().numpy()
-    nbr = (nbytes.cpu().numpy().astype(np.int64) + BLOCK - 1) // BLOCK
+    bits_np = read(bits)
+    nbr = (read(nbytes).astype(np.int64) + BLOCK - 1) // BLOCK
     nb = bits_np.shape[1]
     return replay_fsm(bits_np) & (np.arange(nb)[None, :] < nbr[:, None])
 
@@ -168,7 +169,7 @@ def assemble_masked(pipe: Pipeline, quads, nbytes, copy, flags, pw, w0, w1,
 
     def put(idx, vals, mask):
         mask = mask & (idx < ow)
-        out[(row + idx)[mask]] = vals.to(torch.int32)[mask]
+        out[masked(row + idx, mask)] = masked(vals.to(torch.int32), mask)
 
     sig = pipe.sig_pack(flags.reshape(S, nb, Q))
     sidx = word_off[:, :, None] + torch.arange(SW, device=dev)
@@ -211,12 +212,12 @@ def run_encode(pipe: Pipeline, quads, nbytes):
     host-driven fixed point over the copy-block set decides the copies.
     Returns (out_words, totals, converged)."""
     out, totals, ok, plan = fused(pipe, quads, nbytes)
-    ok = ok.cpu().numpy()
+    ok = read(ok)
     if ok.all():
         return out, totals, True
     # A stream whose certificate holds has no copy block, so the fixed
     # point runs on the failing streams alone.
-    fail = torch.from_numpy(np.flatnonzero(~ok)).to(quads.device)
+    fail = to_card(np.flatnonzero(~ok), quads.device)
     quads, nbytes = quads[fail], nbytes[fail]
     flags, pw, w0, w1, valid, bits = (x[fail] for x in plan)
     copy = np.zeros((len(fail), quads.shape[1] // pipe.Q), bool)
@@ -224,7 +225,7 @@ def run_encode(pipe: Pipeline, quads, nbytes):
     for it in range(MAX_FIXED_POINT_ITERS):
         if it > 0:
             flags, pw, w0, w1, valid, bits = plan_masked(
-                pipe, quads, nbytes, torch.from_numpy(copy).to(quads.device))
+                pipe, quads, nbytes, to_card(copy, quads.device))
         new_copy = step_fsm(bits, nbytes, pipe.BLOCK)
         if np.array_equal(new_copy, copy):
             converged = True
@@ -233,8 +234,8 @@ def run_encode(pipe: Pipeline, quads, nbytes):
     if converged and not copy.any():
         return out, totals, True  # the copy-free pass was already right
     sub_out, sub_totals = assemble_masked(
-        pipe, quads, nbytes, torch.from_numpy(copy).to(quads.device),
-        flags, pw, w0, w1, valid)
+        pipe, quads, nbytes, to_card(copy, quads.device), flags, pw, w0, w1,
+        valid)
     out[fail] = sub_out
     totals[fail] = sub_totals
     return out, totals, converged
@@ -252,7 +253,7 @@ def stage_quads(padded_u8: np.ndarray, device) -> torch.Tensor:
     n_q = pad_quads(cap // 4)
     quads = np.zeros((S, n_q), np.int32)
     quads[:, :cap // 4] = padded_u8.view("<i4")
-    return torch.from_numpy(quads).to(device)
+    return to_card(quads, device)
 
 
 def encode_oneshot(pipe: Pipeline, data, device=None) -> bytes:

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -28,6 +29,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# Held from the check for a library through its build and load, so that
+# workers on several threads build a missing library once.
+_load_lock = threading.Lock()
+# Held for each count of a kernel module's `launches`, so that no count
+# from workers on several threads is lost.
+_count_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -82,13 +89,23 @@ def build(names=KERNELS) -> dict[str, str]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if missing."""
     lib = _loaded.get(name)
-    if lib is None:
-        path = lib_path(name)
-        if not path.exists():
-            build([name])
-        lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
-    return lib
+    if lib is not None:
+        return lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = lib_path(name)
+            if not path.exists():
+                build([name])
+            lib = _loaded[name] = ctypes.CDLL(str(path))
+        return lib
+
+
+def count_launch(scope: dict) -> None:
+    """Adds one to `launches` in `scope`, a kernel module's `globals()`
+    (the count `chip_smoke.py` reads), under a lock."""
+    with _count_lock:
+        scope["launches"] += 1
 
 
 def function(lib_name: str, fn_name: str, n_args: int, int_args):

@@ -41,7 +41,6 @@ def _check_args(flags, pw, w0, w1, nbytes, q, flag_bits):
 
 def pack(flags, pw, w0, w1, nbytes, *, q, sig_words, block, flag_bits):
     """Assemble S block streams; see the module docstring."""
-    global launches
     _check_args(flags, pw, w0, w1, nbytes, q, flag_bits)
     if flags.device.type != "cuda":
         return pack_plain(flags, pw, w0, w1, nbytes, q=q,
@@ -55,7 +54,7 @@ def pack(flags, pw, w0, w1, nbytes, *, q, sig_words, block, flag_bits):
     fn = _build.function("pack", "pack", 14, tuple(range(6, 13)))
     _build.launch(fn, "pack", flags.device, *[_build.ptr(a) for a in args],
                   _build.ptr(out), S, N, q, sig_words, flag_bits, block, ow)
-    launches += 1
+    _build.count_launch(globals())
     return out
 
 

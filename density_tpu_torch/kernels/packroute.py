@@ -19,6 +19,8 @@ stream's end.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -30,9 +32,21 @@ launches = 0  # kernel launches through `pack` (see chip_smoke.py)
 # The kernel's clusters trade their totals through device words tagged
 # with the call's epoch: one buffer per (device, CUDA stream), which only
 # the kernel writes, and one counter for every device, which never
-# repeats an epoch on any buffer (all are dropped when it wraps).
+# repeats an epoch on any buffer (all are dropped when it wraps). Both
+# are taken under `_epoch_lock` (`_next_epoch`): two calls that took one
+# epoch could read each other's totals, and give wrong bytes.
 _tagged: dict = {}
 _epoch = 0
+_epoch_lock = threading.Lock()
+# With K > 1 clusters a stream, a launch's clusters wait for each other,
+# which is safe because the launch takes no more clusters than the card
+# holds at once. Two such launches running at once on two CUDA streams
+# could each hold part of the card and wait for the rest (a trap after
+# about a second). So the launches on a device run in the order they were
+# made, whatever their streams: each waits for the event recorded after
+# the one before it (`_in_device_order`).
+_last_launch: dict = {}
+_order_lock = threading.Lock()
 
 
 def out_width(N: int, q: int, sig_words: int) -> int:
@@ -71,7 +85,6 @@ def pack(flags, pw, w0, w1, nbytes, *, q, sig_words, block, flag_bits):
     kernel takes N a multiple of 16384 (the planner's streams of 65536
     bytes and more) and q 16, 32 or 64, and needs pw = 0 past each
     stream's real blocks, as the planner leaves it."""
-    global launches, _epoch
     check_args(flags, pw, w0, w1, nbytes, q)
     if flags.device.type != "cuda":
         return pack_plain(flags, pw, w0, w1, nbytes, q=q,
@@ -87,24 +100,48 @@ def pack(flags, pw, w0, w1, nbytes, *, q, sig_words, block, flag_bits):
         # the kernel reads rows in 16-byte vectors
         args.append(a.clone() if a.data_ptr() % 16 else a)
     out = torch.empty((S, ow), dtype=torch.int32, device=flags.device)
-    stream = _build.stream_ptr(flags.device)
-    _epoch = _epoch % (2**31 - 1) + 1
-    if _epoch == 1:  # the first call, or the counter wrapped
-        _tagged.clear()
-    key = (flags.device.index, stream.value)
-    tagged = _tagged.get(key)
-    if tagged is None or tagged.numel() < MAX_K * S:
-        # zeros carry epoch 0, which no call uses
-        tagged = torch.zeros(MAX_K * max(S, 64), dtype=torch.int64,
-                             device=flags.device)
-        _tagged[key] = tagged
+    epoch, tagged = _next_epoch(
+        flags.device, _build.stream_ptr(flags.device).value, S)
     fn = _build.function("packroute", "packroute", 16, tuple(range(7, 15)))
-    _build.launch(fn, "packroute", flags.device,
-                  *[_build.ptr(a) for a in args], _build.ptr(out),
-                  _build.ptr(tagged), S, N, q, sig_words, flag_bits, block,
-                  ow, _epoch)
-    launches += 1
+    _in_device_order(flags.device, lambda: _build.launch(
+        fn, "packroute", flags.device, *[_build.ptr(a) for a in args],
+        _build.ptr(out), _build.ptr(tagged), S, N, q, sig_words, flag_bits,
+        block, ow, epoch))
+    _build.count_launch(globals())
     return out
+
+
+def _in_device_order(device, launch) -> None:
+    """Runs `launch()`, one kernel launch on the current stream of card
+    `device`, after the device's previous packroute launch, whichever
+    stream made it (a wait on its event: no host sync)."""
+    stream = torch.cuda.current_stream(device)
+    with _order_lock:
+        prev = _last_launch.get(device.index)
+        if prev is not None:
+            stream.wait_event(prev)
+        launch()
+        done = torch.cuda.Event()
+        done.record(stream)
+        _last_launch[device.index] = done
+
+
+def _next_epoch(device, stream: int, S: int):
+    """A call's epoch, never the same as another call's, and the tagged
+    buffer of (device, CUDA stream `stream`), grown to hold S streams'
+    words; made on the current stream, which must be `stream`."""
+    global _epoch
+    with _epoch_lock:
+        _epoch = _epoch % (2**31 - 1) + 1
+        if _epoch == 1:  # the first call, or the counter wrapped
+            _tagged.clear()
+        key = (device.index, stream)
+        tagged = _tagged.get(key)
+        if tagged is None or tagged.numel() < MAX_K * S:
+            # zeros carry epoch 0, which no call uses
+            tagged = _tagged[key] = torch.zeros(
+                MAX_K * max(S, 64), dtype=torch.int64, device=device)
+        return _epoch, tagged
 
 
 def pack_plain(flags, pw, w0, w1, nbytes, *, q, sig_words, block,

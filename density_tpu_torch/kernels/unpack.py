@@ -90,7 +90,6 @@ def unpack_flagged(words, woff, is_copy=None, *, q, sig_words, flag_bits):
 
 
 def _launch(words, woff, is_copy, q, sig_words, flag_bits):
-    global launches
     S, W = words.shape
     NB = woff.shape[1]
     dev = words.device
@@ -108,7 +107,7 @@ def _launch(words, woff, is_copy, q, sig_words, flag_bits):
                   _build.ptr(cp), _build.ptr(outs[0]), _build.ptr(outs[1]),
                   _build.ptr(outs[2]), _build.ptr(bad), S, NB, W, q,
                   sig_words, flag_bits)
-    launches += 1
+    _build.count_launch(globals())
     return outs[0], outs[1], outs[2], bad
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -26,6 +27,9 @@ N_THREADS = os.cpu_count() or 1
 
 _lib = None
 _load_error: Exception | None = None
+# Held from the check for the library through its build and load, so that
+# workers on several threads build it once.
+_load_lock = threading.Lock()
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -75,10 +79,13 @@ def _load():
         return None
     if _lib is None and _load_error is None:
         from density_tpu_torch.native.build import build
-        try:
-            _lib = _bind(ctypes.CDLL(str(build())))
-        except (OSError, AttributeError, subprocess.CalledProcessError) as e:
-            _load_error = e
+        with _load_lock:
+            if _lib is None and _load_error is None:
+                try:
+                    _lib = _bind(ctypes.CDLL(str(build())))
+                except (OSError, AttributeError,
+                        subprocess.CalledProcessError) as e:
+                    _load_error = e
     return _lib
 
 

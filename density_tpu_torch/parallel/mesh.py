@@ -6,6 +6,10 @@ is split into contiguous shares, one for each device of a list, and in a
 `torch.distributed` run into one contiguous part for each process first.
 Encode and decode keep every stream on the device that owns it; the only
 communication is the ordered gather of the compressed or decoded bytes.
+Over several devices the shares run at once, one worker thread and one
+CUDA stream each (`run_shares`), as a sharded program runs every device
+at once; the workers take turns at the host and hand it on while they
+wait for their cards (`hostsync`).
 
 Entry points run on the CUDA cards unless the caller passes
 `device="cpu"` (or a list of devices); they never fall back to the CPU
@@ -16,8 +20,11 @@ CPU tests stand for several devices with `["cpu"] * k`.
 from __future__ import annotations
 
 import os
+import threading
 
 import torch
+
+from density_tpu_torch import hostsync
 
 
 def _no_cuda() -> RuntimeError:
@@ -87,6 +94,74 @@ def shares(S: int, n: int) -> list[tuple[int, int]]:
     last shares shorter or empty."""
     per = -(-S // n) if S else 0
     return [(min(i * per, S), min((i + 1) * per, S)) for i in range(n)]
+
+
+# One CUDA stream for each (device ordinal, worker index), kept for the
+# process: a bounded set, so the per-stream state of the kernels
+# (`kernels/packroute.py`) and the allocator's per-stream pools do not
+# grow with the number of calls.
+_worker_streams: dict = {}
+_worker_streams_lock = threading.Lock()
+
+
+def worker_stream(dev: torch.device, i: int):
+    """The CUDA stream of worker `i` on card `dev` (an ordinal given)."""
+    with _worker_streams_lock:
+        s = _worker_streams.get((dev.index, i))
+        if s is None:
+            s = _worker_streams[dev.index, i] = torch.cuda.Stream(dev)
+        return s
+
+
+def run_shares(devs: list, tasks: list) -> list:
+    """Runs each share's task and returns their results in order.
+
+    `tasks` holds (device, fn) pairs; `devs` is the device list of the
+    call. With one device the tasks run in turn in the caller's thread,
+    on its current stream. With more, every task runs at once in a
+    worker thread of its own, on a CUDA stream of its own on a card
+    (`worker_stream`), taking turns at the host (`hostsync.turn`):
+    while one worker waits for its card, another dispatches, and the
+    cards run every share's work at once. Every worker is joined before
+    this returns or raises; where tasks fail, the first failing task's
+    exception is raised."""
+    if len(devs) == 1:
+        return [fn() for _, fn in tasks]
+    results = [None] * len(tasks)
+    faults = [None] * len(tasks)
+    streams = [worker_stream(torch.device(
+        "cuda", torch.cuda.current_device() if dev.index is None
+        else dev.index), i) if dev.type == "cuda" else None
+        for i, (dev, _) in enumerate(tasks)]
+
+    def work(i: int, fn) -> None:
+        with hostsync.turn():
+            try:
+                if streams[i] is None:
+                    results[i] = fn()
+                    return
+                with torch.cuda.stream(streams[i]):
+                    results[i] = fn()
+            except Exception as e:  # noqa: BLE001 - raised in the caller
+                faults[i] = e
+                if streams[i] is not None:
+                    # leave no work of the failed task queued on the card
+                    try:
+                        with hostsync.waiting():
+                            streams[i].synchronize()
+                    except RuntimeError:
+                        pass  # a CUDA fault: `e` already reports it
+    workers = [threading.Thread(target=work, args=(i, fn),
+                                name=f"density-share-{i}")
+               for i, (_, fn) in enumerate(tasks)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    for e in faults:
+        if e is not None:
+            raise e
+    return results
 
 
 def distributed_init(init_method: str | None = None,

@@ -5,8 +5,11 @@ the leading (batch) axis of every tensor. In a `torch.distributed` run
 each process takes a contiguous part of the streams (`mesh.shares` over
 the processes), and splits its part again into contiguous shares, one
 for each of its devices (`mesh.resolve_devices`). Every share runs on its
-own device, one after another from one host thread; nothing crosses
-devices or processes inside the encode or the decode. Only the
+own device; over several devices the shares run at once, each a task of
+`mesh.run_shares` (a worker thread and a CUDA stream of its own) that
+stages its streams, runs them and reads their results back, handing the
+host to another worker while it waits for its card (`hostsync`). Nothing
+crosses devices or processes inside the encode or the decode. Only the
 compressed or decoded bytes are gathered, in stream order
 (`all_gather_object` over the gloo group), so every process returns the
 whole container, or the whole data. A container does not depend on the
@@ -15,8 +18,8 @@ number of devices or processes.
 Encode runs each codec's `PIPELINE` on the device: a share's full
 streams as one batch; the ragged final stream as its own batch on the
 first device of the process that owns it, at a capacity bucketed to its
-length. A batch whose fixed point does not converge is encoded by the
-native runtime instead.
+length, a task of its own. A batch whose fixed point does not converge
+is encoded by the native runtime instead.
 
 Decode scans every stream on the host (`native.scan_many`, which also
 counts the predicted tokens) in every process, checks each stream's
@@ -25,8 +28,9 @@ routes for the whole container, as the JAX package's explicit-device
 route does: a cheetah or lion container whose predicted share is above
 `PREDICTED_DEVICE_CUTOFF` decodes on the native runtime's thread pool
 (where there is one); every other container decodes on the devices,
-each share's words and flags read back in one copy and joined in stream
-order, the ragged-tail bytes stamped on the host, and a cheetah or lion
+each share's words and flags read back in one copy by its task and
+joined by the caller in stream order, the ragged-tail bytes stamped on
+the host, and a cheetah or lion
 stream whose context fixpoint did not converge decoded again by the
 native runtime. The route is chosen from the whole container, so every
 share and every process takes the same one; the JAX package's
@@ -35,6 +39,8 @@ multi-process decode always takes the device (`jax.process_count() ==
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -46,9 +52,10 @@ from density_tpu_torch.container import (
     build_header, parse_header, split_streams)
 from density_tpu_torch.engine import layout, unlayout
 from density_tpu_torch.errors import DecodeError, EncodeError
+from density_tpu_torch.hostsync import read, to_card, waiting
 from density_tpu_torch.kernels import unpack
 from density_tpu_torch.parallel.mesh import (
-    process_count, process_index, resolve_devices, shares)
+    process_count, process_index, resolve_devices, run_shares, shares)
 
 CODECS = {"chameleon": chameleon, "cheetah": cheetah, "lion": lion}
 
@@ -94,8 +101,7 @@ def stage_encode(buf: np.ndarray, n: int, s_real: int, cap_bytes: int,
     padded = _stage_streams_u8(buf, n, s_real, cap_bytes, stream_size)
     nbytes = np.clip(n - np.arange(s_real, dtype=np.int64) * stream_size,
                      0, stream_size).astype(np.int32)
-    return (layout.stage_quads(padded, dev),
-            torch.from_numpy(nbytes).to(dev))
+    return layout.stage_quads(padded, dev), to_card(nbytes, dev)
 
 
 def _encode_batch_to_parts(codec, buf, offset, n, s_real, cap_bytes,
@@ -107,14 +113,15 @@ def _encode_batch_to_parts(codec, buf, offset, n, s_real, cap_bytes,
     out, totals, converged = layout.run_encode(codec_module(codec).PIPELINE,
                                                quads, nbytes)
     if not converged:  # pathological streams: the exact host encoder
-        return native.encode_many(codec, [
-            buf[offset + s * stream_size:
-                min(offset + (s + 1) * stream_size, offset + n)].tobytes()
-            for s in range(s_real)])
-    totals = totals.cpu().numpy()
+        with waiting():
+            return native.encode_many(codec, [
+                buf[offset + s * stream_size:
+                    min(offset + (s + 1) * stream_size, offset + n)].tobytes()
+                for s in range(s_real)])
+    totals = read(totals)
     max_words = (int(totals.max()) + 1) // 2
     # u16 values in int32 -> int16 (two's complement) -> u16 on the host
-    out_np = out[:, :max_words].to(torch.int16).cpu().numpy().view("<u2")
+    out_np = read(out[:, :max_words].to(torch.int16)).view("<u2")
     return [out_np[s, :(int(totals[s]) + 1) // 2].tobytes()[:int(totals[s])]
             for s in range(s_real)]
 
@@ -161,21 +168,20 @@ def compress(data: bytes, codec: str, stream_size: int, device=None) -> bytes:
     lo, hi = _part(s_real)
 
     def encode_part():
-        parts = []
         cap = layout.bucket_bytes(stream_size, block)
-        for (a, b), dev in zip(
-                shares(max(0, min(hi, s_full) - lo), len(devs)), devs):
-            if b > a:
-                parts += _encode_batch_to_parts(
-                    codec, buf, (lo + a) * stream_size, (b - a) * stream_size,
-                    b - a, cap, stream_size, dev)
+        tasks = [(dev, partial(
+            _encode_batch_to_parts, codec, buf, (lo + a) * stream_size,
+            (b - a) * stream_size, b - a, cap, stream_size, dev))
+            for (a, b), dev in zip(
+                shares(max(0, min(hi, s_full) - lo), len(devs)), devs)
+            if b > a]
         if s_full < s_real and lo <= s_full < hi:  # the ragged final stream
             tail = n - s_full * stream_size
             cap_tail = layout.bucket_bytes(tail, block)
-            parts += _encode_batch_to_parts(
-                codec, buf, s_full * stream_size, tail, 1, cap_tail,
-                cap_tail, devs[0])
-        return parts
+            tasks.append((devs[0], partial(
+                _encode_batch_to_parts, codec, buf, s_full * stream_size,
+                tail, 1, cap_tail, cap_tail, devs[0])))
+        return [p for parts in run_shares(devs, tasks) for p in parts]
     parts = _gather(encode_part, EncodeError)
     if len(parts) != s_real:
         raise AssertionError("stream count mismatch")
@@ -236,7 +242,7 @@ def _stage(streams, out_lens, woff, copyf, nb_real, dev):
             u16 = np.zeros(2 * cap_words, np.uint8)
             u16[:raw.size] = raw
             words[s] = u16.view("<u2")
-    return tuple(torch.from_numpy(a).to(dev) for a in (
+    return tuple(to_card(a, dev) for a in (
         words, woff, copyf, nb_real, np.asarray(out_lens, np.int32)))
 
 
@@ -268,7 +274,7 @@ def _fetch(out_words, bad, redo, max_words: int):
     host[:S * max_words].view(S, max_words).copy_(out_words[:, :max_words])
     if flags:
         host[S * max_words:].copy_(torch.cat(flags))
-    host = host.cpu().numpy()
+    host = read(host)
     tail = host[S * max_words:]
     again = (tail[-S:] != 0) if redo is not None else np.zeros(S, bool)
     return (host[:S * max_words].view("<u2").reshape(S, max_words),
@@ -277,19 +283,26 @@ def _fetch(out_words, bad, redo, max_words: int):
 
 def _finish(out_words, bad, redo, streams, out_lens, copyf, nb_real,
             codec: str = "chameleon") -> list[bytes]:
-    """Device halfwords -> per-stream bytes. `out_words`, `bad` and
+    """Device halfwords -> per-stream bytes: `out_words`, `bad` and
     `redo` are one share's (`decode_batch`'s results), or lists of the
-    shares' in stream order. Each share's halfwords and flags come back
-    in one host copy and are joined in stream order; a set malformed
-    flag raises DecodeError before any bytes are returned, and a stream
-    flagged for `redo` is decoded by the native runtime instead. A ragged
-    tail is stamped from its stream's last bytes (stored raw) unless its
-    last block is a copy block, which holds them already."""
+    shares' in stream order, each fetched (`_fetch`) and then joined
+    (`_join`)."""
     if isinstance(out_words, torch.Tensor):
         out_words, bad, redo = [out_words], [bad], [redo]
     max_words = (int(max(out_lens, default=0)) + 1) // 2
-    fetched = [_fetch(w, b, r, max_words)
-               for w, b, r in zip(out_words, bad, redo)]
+    return _join([_fetch(w, b, r, max_words)
+                  for w, b, r in zip(out_words, bad, redo)],
+                 streams, out_lens, copyf, nb_real, codec)
+
+
+def _join(fetched, streams, out_lens, copyf, nb_real,
+          codec: str = "chameleon") -> list[bytes]:
+    """The shares' fetched halfwords and flags (`_fetch`'s, in stream
+    order) -> per-stream bytes. A set malformed flag raises DecodeError
+    before any bytes are returned, and a stream flagged for redo is
+    decoded by the native runtime instead. A ragged tail is stamped from
+    its stream's last bytes (stored raw) unless its last block is a copy
+    block, which holds them already."""
     if any(f[1] for f in fetched):
         raise unpack.malformed()
     out_np = np.concatenate([f[0] for f in fetched])
@@ -340,22 +353,36 @@ def _stage_shares(streams, out_lens, woff, copyf, nb_real, lo, hi, devs):
     return staged
 
 
-def _decode_shares(codec, staged, streams, out_lens, copyf, nb_real):
-    """Decode staged shares (`_stage_shares`), each on its device, and
-    return the bytes of their streams in order."""
-    results = [decode_batch(*args, codec) for _, _, args in staged
-               if args is not None]
-    live = [(a, b) for a, b, args in staged if args is not None]
-    got = iter(_finish(
-        [r[0] for r in results], [r[1] for r in results],
-        [r[2] for r in results],
-        [streams[s] for a, b in live for s in range(a, b)],
-        np.concatenate([out_lens[a:b] for a, b in live]),
-        np.concatenate([copyf[a:b] for a, b in live]),
-        np.concatenate([nb_real[a:b] for a, b in live]),
+def _decode_share(codec, streams, out_lens, woff, copyf, nb_real, a, b,
+                  dev, max_words: int):
+    """One share's task: stage streams [a, b) on `dev`, decode them there
+    (`decode_batch`, the cheetah and lion rounds included) and fetch the
+    halfwords and flags (`_fetch`)."""
+    args = _stage(streams[a:b], out_lens[a:b], woff[a:b], copyf[a:b],
+                  nb_real[a:b], dev)
+    return _fetch(*decode_batch(*args, codec), max_words)
+
+
+def _decode_shares(codec, streams, out_lens, woff, copyf, nb_real, lo, hi,
+                   devs):
+    """Decode streams [lo, hi) in one share a device, each share a task
+    of `run_shares` (a share whose streams all decode to 0 bytes has
+    none), and join the bytes in stream order."""
+    max_words = (int(max(out_lens[lo:hi], default=0)) + 1) // 2
+    split = [(lo + a, lo + b, dev, any(out_lens[lo + a:lo + b]))
+             for (a, b), dev in zip(shares(hi - lo, len(devs)), devs)]
+    live = [(a, b, dev) for a, b, dev, has in split if has]
+    fetched = run_shares(devs, [(dev, partial(
+        _decode_share, codec, streams, out_lens, woff, copyf, nb_real, a, b,
+        dev, max_words)) for a, b, dev in live])
+    got = iter(_join(
+        fetched, [streams[s] for a, b, _ in live for s in range(a, b)],
+        np.concatenate([out_lens[a:b] for a, b, _ in live]),
+        np.concatenate([copyf[a:b] for a, b, _ in live]),
+        np.concatenate([nb_real[a:b] for a, b, _ in live]),
         codec) if live else [])
-    return [next(got) if args is not None else b""
-            for a, b, args in staged for _ in range(a, b)]
+    return [next(got) if has else b""
+            for a, b, _, has in split for _ in range(a, b)]
 
 
 def decode_prep(data: bytes, device=None):
@@ -404,10 +431,8 @@ def decompress(data: bytes, device=None) -> bytes:
             live = [s for s in range(lo, hi) if out_lens[s] > 0]
             return native.decode_many(codec, [streams[s] for s in live],
                                       [int(out_lens[s]) for s in live])
-        staged = _stage_shares(streams, out_lens, woff, copyf, nb_real, lo,
-                               hi, devs)
-        return _decode_shares(codec, staged, streams, out_lens, copyf,
-                              nb_real)
+        return _decode_shares(codec, streams, out_lens, woff, copyf,
+                              nb_real, lo, hi, devs)
     out = b"".join(_gather(decode_part, DecodeError))
     if len(out) != original_len:
         raise DecodeError(f"decoded {len(out)} bytes, expected {original_len}")
@@ -433,6 +458,5 @@ def decode_streams(streams, out_lens=None, device=None,
         return [b""] * len(streams)
     out_lens = np.asarray(out_lens, np.int64)
     woff, copyf, nb_real, _ = _scan(codec, streams, out_lens)
-    staged = _stage_shares(streams, out_lens, woff, copyf, nb_real, 0,
-                           len(streams), devs)
-    return _decode_shares(codec, staged, streams, out_lens, copyf, nb_real)
+    return _decode_shares(codec, streams, out_lens, woff, copyf, nb_real, 0,
+                          len(streams), devs)

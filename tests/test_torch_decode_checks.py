@@ -143,7 +143,8 @@ def test_decode_streams_skips_zero_lengths():
 def test_malformed_flag_raises_in_finish(monkeypatch):
     """A block offset past the words (no valid stream makes one, so the
     scan is rewritten) reaches unpack, whose flag comes back with the
-    words and raises DecodeError in `_finish`."""
+    words and raises DecodeError where the shares are joined (`_join`,
+    the caller's part of the finish)."""
     data = _text(3 * 65536 + 11)
     blob = pcontainer.compress(data, "chameleon", 65536, device="cpu")
     scan = pnative.scan_many
@@ -154,17 +155,17 @@ def test_malformed_flag_raises_in_finish(monkeypatch):
         return (bio, *rest)
 
     finished = []
-    finish = sharding._finish
+    join = sharding._join
 
-    def spy(*args):
-        finished.append(int(args[1][0]))
-        return finish(*args)
+    def spy(fetched, *args):
+        finished.append([f[1] for f in fetched])  # each share's flag
+        return join(fetched, *args)
 
     monkeypatch.setattr(pnative, "scan_many", bad_scan)
-    monkeypatch.setattr(sharding, "_finish", spy)
+    monkeypatch.setattr(sharding, "_join", spy)
     with pytest.raises(DecodeError, match="malformed"):
         pcontainer.decompress(blob, device="cpu")
-    assert finished == [1]
+    assert finished == [[True]]
 
 
 def test_unpack_flagged_zeroes_bad_blocks():

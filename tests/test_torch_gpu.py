@@ -10,6 +10,8 @@ conftest, which imports JAX, is left out):
 Inputs are made from a numpy seed; every comparison is exact.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -654,6 +656,61 @@ def test_shares_on_card_give_one_device_containers(cuda, codec, monkeypatch):
     for cutoff in (-1.0, 1.0):  # the pool, then the device
         monkeypatch.setattr(sharding, "PREDICTED_DEVICE_CUTOFF", cutoff)
         assert container.decompress(two, device=[cuda, cuda]) == data
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("codec", ["chameleon", "cheetah", "lion"])
+def test_concurrent_shares_on_card_repeat_one_device_containers(
+        cuda, codec, k, monkeypatch):
+    """k shares on one card, run at once (a worker thread and a CUDA
+    stream each), compressed and decompressed 5 times on the device
+    route: every container equal to one device's, every round trip
+    exact."""
+    from density_tpu_torch.parallel import sharding
+    data = _data(25, 9 * 65536 + 999)
+    one = container.compress(data, codec, 65536, device=cuda)
+    monkeypatch.setattr(sharding, "PREDICTED_DEVICE_CUTOFF", 1.0)
+    for _ in range(5):
+        blob = container.compress(data, codec, 65536, device=[cuda] * k)
+        assert blob == one
+        assert container.decompress(blob, device=[cuda] * k) == data
+
+
+def test_packroute_from_two_threads_on_two_streams(cuda):
+    """Two threads, each on a CUDA stream of its own, launch packroute 50
+    times each at once (rows of 2^18 quads, whose clusters trade totals
+    through the words tagged with each call's epoch): every result equals
+    the plain version's."""
+    kw = dict(q=64, sig_words=4, block=256, flag_bits=1)
+    N, S = 1 << 18, 8
+    inputs = []
+    for seed in (31, 32):
+        rng = np.random.default_rng(seed)
+        nbytes = rng.integers(1, 4 * N + 1, S).astype(np.int32)
+        args = [x.to(cuda) for x in _geometry_tokens(rng, S, N, 64, 1,
+                                                     nbytes)]
+        args.append(torch.from_numpy(nbytes).to(cuda))
+        inputs.append((args, packroute.pack_plain(*args, **kw)))
+    torch.cuda.synchronize()
+    start = threading.Barrier(2, timeout=60)
+    errors = []
+
+    def run(args, want):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                start.wait()
+                for call in range(50):
+                    if not torch.equal(packroute.pack(*args, **kw), want):
+                        errors.append(f"call {call} differs")
+        except Exception as e:  # noqa: BLE001 - reported by the assert
+            errors.append(repr(e))
+    threads = [threading.Thread(target=run, args=a) for a in inputs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
 
 
 @pytest.mark.parametrize("codec", ["chameleon", "cheetah", "lion"])
