@@ -110,7 +110,19 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
       `stream_stats` of the card's encoded stream, bigsort counted, timed
       beside one planner pass;
   (w) chunked sessions (`StreamEncoder`/`StreamDecoder`) of the corpus in
-      uneven chunks, equal to `native.encode`, and an LZ4 round trip.
+      uneven chunks, equal to `native.encode`, and an LZ4 round trip;
+  (x) the fault surface, in a child process killed after FAULT_TIMEOUT
+      (a kernel that hangs fails the phase): headers of no streams raise
+      DecodeError on the card for the three codecs; about 30 seeded
+      mutations (`mutations`: header fields, stream table, payload,
+      cuts, appended bytes, swapped streams) of 8 containers a codec
+      (`fault_input`: three 4 KiB streams and a tail, compressed on the
+      card, equal to `native.encode`) give on the card the outcome
+      (DecodeError or bytes) and the bytes of the CPU path, cheetah and
+      lion also on the device route; the seven adversarial FSM inputs
+      of the JAX package's fuzz suite encode with each codec on the card
+      to `native.encode`'s bytes under both sort options; the golden
+      vectors both ways; all five kernels launched in the phase.
 Prints the card's name and power limit, a `kernels` JSON line and, last,
 the device JSON line. Any failure exits non-zero. Writes the compiler's
 register report to `DIR/ptxas.txt` and the profiles to
@@ -123,7 +135,9 @@ import argparse
 import contextlib
 import json
 import os
+import random
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -139,8 +153,15 @@ OUT_DIR = "smoke_out"  # reports too long for the standard output
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 ALU_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit rate (data sheet)
 TEST_DATA = b"test" * 31 + b"t"
-GOLDEN_CHAMELEON = bytes([0xfe, 0xff, 0xff, 0x7f, 0, 0, 0, 0,
-                          116, 101, 115, 116] + [112, 251] * 30 + [116])
+# the reference's own vectors (`tests/test_golden.py`)
+GOLDEN = {
+    "chameleon": bytes([0xfe, 0xff, 0xff, 0x7f, 0, 0, 0, 0,
+                        116, 101, 115, 116] + [112, 251] * 30 + [116]),
+    "cheetah": bytes([244, 255, 255, 255, 255, 255, 255, 63,
+                      116, 101, 115, 116, 112, 251, 116]),
+    "lion": bytes([112, 146, 36, 73, 146, 36, 116, 101, 115, 116, 112, 251,
+                   73, 146, 36, 73, 146, 4, 116]),
+}
 REPLACES = {
     "bigsort": "density_tpu/kernels/bigsort.py:166",
     "packroute": "density_tpu/kernels/packroute.py:161",
@@ -624,9 +645,9 @@ def phase_main_path(dev, data: bytes):
             raise AssertionError(f"stream {i} differs from the CPU path")
     if host_scan.encode_scalar(data[STREAM:2 * STREAM]) != parts[1]:
         raise AssertionError("stream 1 differs from the scalar encoder")
-    if chameleon.encode(TEST_DATA, device=dev) != GOLDEN_CHAMELEON:
+    if chameleon.encode(TEST_DATA, device=dev) != GOLDEN["chameleon"]:
         raise AssertionError("golden vector mismatch")
-    if chameleon.decode(GOLDEN_CHAMELEON, device=dev) != TEST_DATA:
+    if chameleon.decode(GOLDEN["chameleon"], device=dev) != TEST_DATA:
         raise AssertionError("golden vector decode mismatch")
     log(f"(c) main path: {len(data)} bytes in {len(parts)} streams -> "
         f"{len(blob)} bytes (ratio {len(data) / len(blob):.4f}), round trip "
@@ -2079,6 +2100,300 @@ def phase_sessions(data: bytes) -> None:
         f"{len(data) / t_lz / 1e6:.3f} MB/s host")
 
 
+
+# ------------------------------------------------- the fault surface (x)
+
+FAULT_STREAM = 4096  # bytes a stream of the mutated containers
+FAULT_SEEDS = 8  # seeded inputs a codec, each mutated about 30 ways
+_HDR = struct.Struct("<4sBBHQII")  # the DTPU v1 header
+
+
+def fault_input(seed: int) -> bytes:
+    """The input of `seed` that phase (x) mutates: three 4 KiB streams and
+    a ragged tail of 1001-1007 bytes. Even seeds: text with repeats
+    around a random section; odd seeds: quads from 97 seeded values (the
+    JAX package's multi-chip recipe), whose low predicted share keeps
+    cheetah's decode on the device."""
+    rng = np.random.default_rng(seed)
+    n = 3 * FAULT_STREAM + 1001 + 2 * (seed // 2 % 4)
+    if seed % 2:
+        vocab = rng.integers(1, 1 << 32, 97, dtype=np.uint64).astype(
+            np.uint32)
+        return vocab[rng.integers(0, 97, n // 4 + 1)].astype(
+            "<u4").tobytes()[:n]
+    words = [b"the quick brown fox ", b"jumps over ", b"lazy dog ",
+             b"density ", b"codec\n"]
+    text = b"".join(words[i] for i in rng.integers(0, 5, n // 4))
+    noise = rng.integers(0, 256, 2048, dtype=np.uint8).tobytes()
+    return (text[:5000] + noise + text[5000:])[:n]
+
+
+def zero_stream_headers(codec_id: int, original_len: int,
+                        stream_size: int) -> list:
+    """Headers of no streams and no payload, with the length given and
+    with 0: [(name, container)]."""
+    return [(f"0 streams, length {n}",
+             _HDR.pack(b"DTPU", 1, codec_id, 0, n, stream_size, 0))
+            for n in (original_len, 0)]
+
+
+def mutations(blob: bytes, seed: int) -> list:
+    """Seeded malformed variants of a container of several streams:
+    [(name, container)]. Byte flips in each header field (magic, version,
+    codec id, reserved, `original_len`, `stream_size`, stream count) and
+    in the stream-length table; the other codec ids; lengths and counts
+    rewritten; two table entries swapped; payload flips; cuts in the
+    header, the table and the payload; appended bytes; two streams
+    swapped with their lengths; the zero-stream headers."""
+    rng = np.random.default_rng(1000 + seed)
+    _, _, codec_id, _, original_len, stream_size, S = _HDR.unpack_from(blob)
+    off = _HDR.size + 4 * S
+    lengths = np.frombuffer(blob[_HDR.size:off], "<u4").astype(np.int64)
+    ends = off + np.cumsum(lengths)
+    streams = [blob[e - n:e] for e, n in zip(ends, lengths)]
+    out = []
+
+    def put(name, pos, new: bytes):
+        b = bytearray(blob)
+        b[pos:pos + len(new)] = new
+        out.append((name, bytes(b)))
+
+    def flip(name, lo, hi):
+        pos = int(rng.integers(lo, hi))
+        put(f"{name} flip @{pos}", pos,
+            bytes([blob[pos] ^ int(rng.integers(1, 256))]))
+
+    flip("magic", 0, 4)
+    flip("version", 4, 5)
+    flip("codec id", 5, 6)
+    for cid in {0, 1, 2} - {codec_id}:
+        put(f"codec id {cid}", 5, bytes([cid]))
+    flip("reserved", 6, 8)
+    for _ in range(3):
+        flip("original_len", 8, 11)
+    flip("original_len", 11, 16)
+    tail = original_len - (S - 1) * stream_size
+    for n in (original_len - 1, original_len + 1, original_len - tail):
+        put(f"original_len {n}", 8, n.to_bytes(8, "little"))
+    for _ in range(2):
+        flip("stream_size", 16, 20)
+    flip("stream count", 20, 24)
+    for n in (S - 1, S + 1):
+        put(f"stream count {n}", 20, n.to_bytes(4, "little"))
+    for _ in range(2):
+        flip("length table", _HDR.size, off)
+    a, b = (int(i) for i in rng.choice(S, 2, replace=False))
+    order = list(range(S))
+    order[a], order[b] = b, a
+    put(f"lengths {a}<->{b}", _HDR.size,
+        lengths[order].astype("<u4").tobytes())
+    for _ in range(4):
+        flip("payload", off, len(blob))
+    for lo, hi in ((1, _HDR.size), (_HDR.size, off), (off, len(blob))):
+        cut = int(rng.integers(lo, hi))
+        out.append((f"cut @{cut}", blob[:cut]))
+    for k in (1, int(rng.integers(2, 64))):
+        out.append((f"{k} bytes appended", blob + rng.integers(
+            0, 256, k, dtype=np.uint8).tobytes()))
+    out.append((f"streams {a}<->{b}", blob[:_HDR.size]
+                + lengths[order].astype("<u4").tobytes()
+                + b"".join(streams[i] for i in order)))
+    return out + zero_stream_headers(codec_id, original_len, stream_size)
+
+
+def adversarial_inputs() -> dict:
+    """Compressible and incompressible sections whose lengths cross the
+    protection FSM's boundaries (arming, decay, the halving every 16th
+    block), and a long random run: the JAX package's
+    `tests/test_fuzz.py::_adversarial_inputs`, case for case."""
+    rng = random.Random(1234)
+    cases = {}
+    for trial in range(6):
+        parts = []
+        for k in range(rng.randint(6, 18)):
+            n_blocks = rng.choice([1, 2, 3, 5, 15, 16, 17, 33])
+            if k % 2 == trial % 2:
+                parts.append(rng.randbytes(256 * n_blocks))
+            else:
+                parts.append(b"abcd" * (64 * n_blocks))
+        cases[f"interleave{trial}"] = b"".join(parts)
+    cases["long_random"] = random.Random(7).randbytes(256 * 80)
+    return cases
+
+
+def outcome(fn, *args, **kw):
+    """("ok", bytes) or (the error's class name, None) of `fn(*args,
+    **kw)`; an error other than the package's own or the header's
+    `struct.error` propagates."""
+    from density_tpu_torch.errors import DensityError
+    try:
+        return "ok", fn(*args, **kw)
+    except (DensityError, struct.error) as e:
+        return type(e).__name__, None
+
+
+
+@contextlib.contextmanager
+def device_route():
+    """Every container decodes on the device route: the predicted-share
+    cutoff raised, so the host pool serves none."""
+    from density_tpu_torch.parallel import sharding
+    cutoff = sharding.PREDICTED_DEVICE_CUTOFF
+    sharding.PREDICTED_DEVICE_CUTOFF = float("inf")
+    try:
+        yield
+    finally:
+        sharding.PREDICTED_DEVICE_CUTOFF = cutoff
+
+
+@contextlib.contextmanager
+def device_encodes_only(what: str):
+    """Fails if an encode inside handed a stream to the native encoder (a
+    fixed point that did not converge): the bytes must be the device
+    path's."""
+    from density_tpu_torch import native
+    calls = []
+    one, many = native.encode, native.encode_many
+    native.encode = lambda *a: calls.append(1) or one(*a)
+    native.encode_many = lambda *a: calls.append(1) or many(*a)
+    try:
+        yield
+    finally:
+        native.encode, native.encode_many = one, many
+    if calls:
+        raise AssertionError(f"(x) {what}: the native encoder was called")
+
+
+FAULT_TIMEOUT = 900  # seconds for phase (x)'s child process
+FAULT_WORKER = """
+import os, sys
+sys.path.insert(0, os.getcwd())
+import chip_smoke
+chip_smoke.fault_worker()
+"""
+
+
+def fault_worker(device: str = "cuda", seeds: int = FAULT_SEEDS) -> None:
+    """Phase (x)'s work on `device`, in a process of its own: see
+    `phase_faults` (`seeds` mutated inputs a codec). Prints its report
+    as JSON, last."""
+    import torch
+    from density_tpu_torch import api, container, native
+    from density_tpu_torch.errors import DecodeError
+    from density_tpu_torch.parallel import sharding
+    dev = torch.device(device)
+    t = time.time()
+    reset_counts()
+    codecs = {"chameleon": 0, "cheetah": 1, "lion": 2}
+    # the zero-stream headers: DecodeError on the card, b"" at length 0
+    for codec, cid in codecs.items():
+        bad, empty = (b for _, b in zero_stream_headers(cid, 5000,
+                                                         FAULT_STREAM))
+        for fn in (container.decompress, sharding.decode_prep):
+            try:
+                fn(bad, device=dev)
+            except DecodeError as e:
+                if "decoded 0 bytes, expected 5000" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"(x) {codec}: {fn.__name__} of a "
+                                     "zero-stream header did not raise")
+        if container.decompress(empty, device=dev) != b"":
+            raise AssertionError(f"(x) {codec}: empty header")
+    # the seeded mutations, on the card against the CPU path
+    n_mut = n_equal = 0
+    kinds: dict = {}
+    for codec in codecs:
+        for seed in range(seeds):
+            data = fault_input(seed)
+            blob = compress_on_device(dev, data, codec, FAULT_STREAM)[0]
+            chunks = stream_chunks(data, FAULT_STREAM)
+            if payloads(blob) != native.encode_many(codec, chunks):
+                raise AssertionError(f"(x) {codec} seed {seed}: container "
+                                     "differs from native.encode")
+            routes = [contextlib.nullcontext]
+            if codec != "chameleon":
+                routes.append(device_route)
+            for name, bad in mutations(blob, seed):
+                for route in routes:
+                    with route():
+                        card = outcome(container.decompress, bad, device=dev)
+                        cpu = outcome(container.decompress, bad,
+                                      device="cpu")
+                    n_mut += 1
+                    if card != cpu:
+                        raise AssertionError(
+                            f"(x) {codec} seed {seed} {name!r} "
+                            f"({route.__name__}): card {card[0]}, CPU "
+                            f"{cpu[0]}")
+                    n_equal += 1
+                    kinds[card[0]] = kinds.get(card[0], 0) + 1
+    # the adversarial FSM inputs under both sort options, and the golden
+    # vectors, encoded on the card
+    n_fsm = 0
+    for option in ("default", "bitonic"):
+        if option == "bitonic":
+            os.environ["DENSITY_TPU_SORT"] = "bitonic"
+        try:
+            for codec in codecs:
+                for case, d in adversarial_inputs().items():
+                    with device_encodes_only(f"{codec} {case} ({option})"):
+                        enc = api.encode_raw(d, codec, device=dev)
+                    if enc != native.encode(codec, d):
+                        raise AssertionError(f"(x) {codec} {case} "
+                                             f"({option}) differs from "
+                                             "native.encode")
+                    n_fsm += 1
+        finally:
+            os.environ.pop("DENSITY_TPU_SORT", None)
+    for codec, want in GOLDEN.items():
+        with device_encodes_only(f"{codec} golden vector"):
+            enc = api.encode_raw(TEST_DATA, codec, device=dev)
+        if enc != want or api.decode_raw(want, codec,
+                                         device=dev) != TEST_DATA:
+            raise AssertionError(f"(x) {codec} golden vector")
+    print(json.dumps({"mutations": n_mut, "equal": n_equal,
+                      "outcomes": kinds, "fsm_encodes": n_fsm,
+                      "launches": read_counts(),
+                      "seconds": round(time.time() - t, 3)}), flush=True)
+
+
+def phase_faults() -> None:
+    """(x) The fault surface on the card, in a child process killed at
+    FAULT_TIMEOUT, so that a kernel that hangs fails the phase: headers of
+    no streams raise DecodeError (decompress and decode_prep) for the
+    three codecs; every seeded mutation of `mutations` of each codec's
+    `fault_input` containers (compressed on the card, equal to
+    `native.encode`) gives the CPU path's outcome and bytes on the card,
+    cheetah's and lion's also on the device route; the seven adversarial
+    FSM inputs encode to `native.encode`'s bytes with each codec under
+    both sort options, and the golden vectors both ways. Every one of
+    the five kernels must launch in it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.Popen([sys.executable, "-c", FAULT_WORKER], cwd=here,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+    try:
+        out, err = p.communicate(timeout=FAULT_TIMEOUT)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    if p.returncode != 0:
+        raise AssertionError(f"(x) failed ({p.returncode}): {err[-3000:]}")
+    r = json.loads(out.strip().splitlines()[-1])
+    low = [k for k, n in r["launches"].items() if n < 1]
+    if low or r["equal"] != r["mutations"]:
+        raise AssertionError(f"(x) kernels not launched {low}, or outcomes "
+                             f"differ: {r}")
+    log(f"(x) fault surface: zero-stream headers raise DecodeError on the "
+        f"card for 3 codecs; {r['mutations']} mutated containers, "
+        f"{r['equal']} outcomes equal to the CPU path's "
+        f"{r['outcomes']}; {r['fsm_encodes']} adversarial FSM encodes and "
+        f"3 golden vectors equal to native.encode; launches "
+        f"{r['launches']}; {r['seconds']:.1f} s")
+
+
 def main() -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2164,6 +2479,7 @@ def main() -> int:
     phase_processes(dev, args.seed, rank_blobs)
     phase_stats(dev, data, one, big)
     phase_sessions(data)
+    phase_faults()
     # each kernel's count from its own path's counted run
     counts = {k: main_counts[k] for k in ("bigsort", "packroute", "unpack")}
     counts["pack"] = small_counts["pack"]

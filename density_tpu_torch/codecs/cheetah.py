@@ -226,9 +226,11 @@ def resolve(flags, w0, w1, valid, max_rounds: int = MAX_ROUNDS):
     other token's hash group is on the wire, so plain/mapA/mapB values
     resolve in one segmented scan of flag-driven ops. A predicted token
     copies the latest non-predicted value of its context group, given
-    the right contexts (ctx_i = hash of quad_{i-1}); contexts are unknown
-    only after predicted tokens, so that pass iterates to its fixpoint,
-    which is the unique solution. Each round after the first reads, on
+    the right contexts (ctx_i = the hash of token i-1: the wire's for a
+    map token, as the reference keeps it, whatever quad its slot holds;
+    the quad's for the others); contexts are unknown only after
+    predicted tokens, so that pass iterates to its fixpoint, which is
+    the unique solution. Each round after the first reads, on
     the host, whether any stream changed (one host sync a round).
 
     Returns (quads, ok, rounds): ok[s] is False where stream s still
@@ -264,7 +266,7 @@ def resolve(flags, w0, w1, valid, max_rounds: int = MAX_ROUNDS):
     changed = torch.ones(S, dtype=torch.bool, device=dev)
     rounds = 0
     while rounds < max_rounds and (rounds == 0 or bool(read(changed.any()))):
-        ctx = ctx_fill(hash_quads(quads), valid)
+        ctx = ctx_fill(torch.where(nonpred, key, hash_quads(quads)), valid)
         ck_s, ck2_s, q_s = sort(torch.where(valid, ctx, 1 << 16), ckey_lo,
                                 quads, n_keys=2)
         fill, _ = seg_last_active_before(ck_s != shift_right(ck_s, -1), q_s,

@@ -214,7 +214,9 @@ def resolve(flags, w0, w1, valid, max_rounds: int = MAX_ROUNDS):
     The dictionary chain never involves predicted tokens, and every
     other token's hash group is on the wire, so plain/mapA/mapB values
     resolve in one segmented scan of flag-driven ops. Given the contexts
-    (ctx_i = hash of quad_{i-1}), the queue ops are flag-driven too (a
+    (ctx_i = the hash of token i-1: the wire's for a map token, as the
+    reference keeps it, whatever quad its slot holds; the quad's for the
+    others), the queue ops are flag-driven too (a
     non-predicted quad shift-inserts its known value, a predicted one at
     depth d promotes slot d and reads it), so the predicted values come
     from one segmented scan of the 5-slot selection maps; contexts are
@@ -258,7 +260,7 @@ def resolve(flags, w0, w1, valid, max_rounds: int = MAX_ROUNDS):
     changed = torch.ones(S, dtype=torch.bool, device=dev)
     rounds = 0
     while rounds < max_rounds and (rounds == 0 or bool(read(changed.any()))):
-        ctx = ctx_fill(hash_quads(quads), valid)
+        ctx = ctx_fill(torch.where(nonpred, key, hash_quads(quads)), valid)
         ck_s, ck2_s, q_s = sort(torch.where(valid, ctx, 1 << 16), ck2, quads,
                                 n_keys=2)
         kind_s = (ck2_s >> 3) & 3

@@ -208,7 +208,8 @@ def _scan(codec, streams, out_lens):
             raise DecodeError("stream too short for its decoded length")
     live = [s for s in range(S) if out_lens[s] > 0]
     nb_cap = layout.pad_quads(
-        -(-int(max(out_lens)) // spec.block_size) * spec.quads_per_block
+        -(-int(max(out_lens, default=0)) // spec.block_size)
+        * spec.quads_per_block
     ) // spec.quads_per_block
     bio, boo, bcp, nbs, pred, tot = native.scan_many(
         codec, [streams[s] for s in live], nb_cap)
@@ -233,8 +234,8 @@ def _stage(streams, out_lens, woff, copyf, nb_real, dev):
     """Device inputs of the decode: (words, woff, is_copy, nb_real,
     out_len), the words (S, W) u16 values in int32."""
     S = len(streams)
-    cap_words = (max(len(streams[s]) for s in range(S) if out_lens[s] > 0)
-                 + 1) // 2
+    cap_words = (max((len(streams[s]) for s in range(S) if out_lens[s] > 0),
+                     default=0) + 1) // 2
     words = np.zeros((S, cap_words), dtype=np.int32)
     for s in range(S):
         if out_lens[s] > 0:
@@ -325,10 +326,14 @@ def _join(fetched, streams, out_lens, copyf, nb_real,
 
 
 def _streams(data: bytes):
-    """Header parse: (codec, original_len, streams, decoded lengths)."""
+    """Header parse: (codec, original_len, streams, decoded lengths). A
+    header of no streams but a nonzero length raises as the reference's
+    length check does."""
     codec, original_len, stream_size, lengths, off = parse_header(data)
     if int(lengths.sum()) != len(data) - off:
         raise DecodeError("stream table does not match payload size")
+    if not len(lengths) and original_len:
+        raise DecodeError(f"decoded 0 bytes, expected {original_len}")
     s_real = len(lengths)
     out_lens = np.clip(
         original_len - np.arange(s_real, dtype=np.int64) * stream_size,
