@@ -95,7 +95,9 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
       and in 4 shares of 1 MiB streams (packroute's several clusters a
       stream, launched from several streams);
       the share of each call's wall in which two or more share tasks
-      were in flight (above 0 for every 2-share compress); host syncs and
+      were in flight (above 0 for every 2-share compress; the tasks'
+      `density.sharding.share` spans in a profiler session around 10
+      more round trips, each checked too); host syncs and
       launches per call on one device (with `--parent DIR`, equal to that
       tree's) and in shares, where no worker may wait for the card while
       it holds the host's turn (`density_tpu_torch/hostsync.py`);
@@ -123,6 +125,8 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
       of the JAX package's fuzz suite encode with each codec on the card
       to `native.encode`'s bytes under both sort options; the golden
       vectors both ways; all five kernels launched in the phase.
+Phase (t) runs last, after (e) and (f), whose profiler sessions came
+back with no device event in most runs that had run (t) before them.
 Prints the card's name and power limit, a `kernels` JSON line and, last,
 the device JSON line. Any failure exits non-zero. Writes the compiler's
 register report to `DIR/ptxas.txt` and the profiles to
@@ -241,13 +245,21 @@ def timed_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_work(e) -> bool:
+    """Whether a `key_averages()` row is the card's own work (a kernel,
+    copy or memset), not a host row nor one of the port's spans drawn on
+    the card's timeline (`density_tpu_torch.tracing`)."""
+    from torch.autograd import DeviceType
+    from density_tpu_torch.tracing import PREFIX
+    return e.device_type != DeviceType.CPU and not e.key.startswith(PREFIX)
+
+
 def device_profile(fn, iters: int = 10) -> tuple[float, float]:
     """Mean device time per call and kernel launches per call: the card's
     own events (kernels, copies, memsets) under torch.profiler, their
     times summed, so that the host's launch gaps, which vary from machine
     to machine, are left out; the launches count the kernels alone."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -258,8 +270,7 @@ def device_profile(fn, iters: int = 10) -> tuple[float, float]:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type != DeviceType.CPU]
+        events = [e for e in prof.key_averages() if device_work(e)]
         us = sum(e.self_device_time_total for e in events)
         if us > 0:
             break
@@ -1079,7 +1090,6 @@ def phase_profile(fns) -> None:
     device's busy time (the sum of its kernels' self times) and the
     kernels that take it. Full tables go to OUT_DIR."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for name, fn in fns.items():
         fn()
@@ -1094,7 +1104,7 @@ def phase_profile(fns) -> None:
         # the device's own events (kernels, copies, memsets); the aten
         # rows repeat their kernels' time and are left out of the sum
         rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
-                       for e in ka if e.device_type != DeviceType.CPU
+                       for e in ka if device_work(e)
                        and e.self_device_time_total > 0),
                       key=lambda r: -r[2])
         busy = sum(r[2] for r in rows)
@@ -1620,30 +1630,6 @@ IN_TURN_RATIOS = {"chameleon": ("0.951-1.011x", "1.106-1.121x"),
               "lion": ("0.928-0.968x", "0.927-1.051x")}
 
 
-@contextlib.contextmanager
-def share_spans():
-    """Records each share task's host start and end (`time.perf_counter`)
-    as `sharding` runs it through `mesh.run_shares`: yields the list of
-    (start, end) pairs."""
-    from density_tpu_torch.parallel import sharding
-    spans, run = [], sharding.run_shares
-
-    def timed(fn):
-        def task():
-            t = time.perf_counter()
-            try:
-                return fn()
-            finally:
-                spans.append((t, time.perf_counter()))
-        return task
-    sharding.run_shares = lambda devs, tasks: run(
-        devs, [(d, timed(fn)) for d, fn in tasks])
-    try:
-        yield spans
-    finally:
-        sharding.run_shares = run
-
-
 def overlap(spans, wall_s: float) -> float:
     """The share of `wall_s` in which at least two of `spans` were in
     flight."""
@@ -1656,13 +1642,25 @@ def overlap(spans, wall_s: float) -> float:
     return both / wall_s
 
 
-def spanned(fn):
-    """(result, overlap share, tasks) of one call of `fn`."""
-    with share_spans() as spans:
-        t = time.perf_counter()
-        out = fn()
-        wall = time.perf_counter() - t
-    return out, overlap(spans, wall), len(spans)
+@contextlib.contextmanager
+def spanned():
+    """One profiler session around a series of calls of the port; once it
+    has ended, the list it yields holds (overlap share, tasks) of each
+    call in order, read from the port's spans: a call's wall is its root
+    `density.container.*` span, its share tasks the
+    `density.sharding.share` spans inside it. The session records the
+    host alone, as the benchmark's does with the card besides."""
+    from torch.profiler import ProfilerActivity, profile
+    calls = []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        yield calls
+    events = [(e.name, e.time_range.start / 1e6, e.time_range.end / 1e6)
+              for e in prof.events() if e.name.startswith("density.")]
+    shares = [(a, b) for n, a, b in events if n == "density.sharding.share"]
+    for a, b in sorted((a, b) for n, a, b in events
+                       if n.startswith("density.container.")):
+        mine = [(x, y) for x, y in shares if a <= x and y <= b]
+        calls.append((overlap(mine, b - a), len(mine)))
 
 
 def one_device_counts(seed: int = 0) -> dict:
@@ -1721,23 +1719,43 @@ def parent_counts(parent: str, seed: int) -> dict:
     return json.loads(p.stdout.strip().splitlines()[-1])
 
 
+def shares_round_trip(data: bytes, codec: str, stream: int, devs: list,
+                      want: bytes, route, where: str) -> None:
+    """Compresses `data` in the shares of `devs`, which must give `want`,
+    and decompresses that container, which must give `data`; with
+    `route` = (input, container), that container too, which must give
+    its input. Raises, naming `where`, at the first that differs."""
+    from density_tpu_torch import container
+    got = container.compress(data, codec, stream, device=devs)
+    if got != want:
+        raise AssertionError(f"(t) {where}: the container differs from "
+                             "one device's")
+    if container.decompress(got, device=devs) != data:
+        raise AssertionError(f"(t) {where}: round trip differs")
+    if route is not None and container.decompress(
+            route[1], device=devs) != route[0]:
+        raise AssertionError(f"(t) {where}: the device route differs")
+
+
 def phase_shares(dev, data: bytes, blobs: dict, conv: dict,
                  small_blob: bytes, mib_blob: bytes, parent: str | None,
                  seed: int) -> dict:
     """(t) Shares on the card, run at once (a worker thread and a CUDA
     stream each): each codec's corpus in 256 KiB streams in 2 and 4
     shares (and over every card where there are several), compressed and
-    decompressed SHARE_REPEATS times, each container equal to its
-    one-device phase's (c, k, p) and each round trip exact; cheetah and
+    decompressed SHARE_REPEATS times untraced and as many times more in a
+    profiler session, each container equal to its one-device phase's
+    (c, k, p) and each round trip exact; cheetah and
     lion also decoded on the device route through the shares (phase l's
     and q's input); chameleon in 16 KiB streams (pack) and under
     DENSITY_TPU_SORT=bitonic in 2 shares, and in 1 MiB streams in 4.
     Every kernel of a path is launched at least once a share. Prints the
     share of each call's wall in which two or more share tasks were in
-    flight (each task's host start and end), which must be above 0 for
-    every 2-share compress; the host syncs and launches per call; and the
-    walls on one device and in 2 and 4 shares, in turns. With `parent`,
-    the one-device counts must equal that tree's. Returns the 2-share
+    flight (each task's `density.sharding.share` span), which must be
+    above 0 for every 2-share compress; the host syncs and launches per
+    call; and the walls on one device and in 2 and 4 shares, in turns.
+    With `parent`, the one-device counts must equal that tree's. Returns
+    the 2-share
     counts by codec."""
     import torch
     from density_tpu_torch import container
@@ -1748,35 +1766,31 @@ def phase_shares(dev, data: bytes, blobs: dict, conv: dict,
     counts = {}
     for codec, blob in blobs.items():
         for what, devs in lists.items():
-            overlaps = {"compress": [], "decompress": []}
-            for rep in range(SHARE_REPEATS):
+            route = None if codec == "chameleon" else conv[codec][:2]
+            for rep in range(SHARE_REPEATS):  # untraced, as users call
                 reset_counts()
-                got, ov, n_c = spanned(lambda: container.compress(
-                    data, codec, STREAM, device=devs))
-                if got != blob:
-                    raise AssertionError(f"(t) {codec} in {what}, round "
-                                         f"{rep}: the container differs "
-                                         "from one device's")
-                if ov <= 0 and len(devs) == 2:
-                    raise AssertionError(f"(t) {codec} in {what}, round "
-                                         f"{rep}: no two shares ran at once")
-                overlaps["compress"].append(ov)
-                back, ov, n_d = spanned(lambda: container.decompress(
-                    got, device=devs))
-                if back != data:
-                    raise AssertionError(f"(t) {codec} in {what}, round "
-                                         f"{rep}: round trip differs")
-                if codec != "chameleon":  # the device route through shares
-                    conv_data, conv_blob, _ = conv[codec]
-                    back, ov, n_d = spanned(lambda: container.decompress(
-                        conv_blob, device=devs))
-                    if back != conv_data:
-                        raise AssertionError(f"(t) {codec} in {what}, round "
-                                             f"{rep}: the device route "
-                                             "differs")
-                overlaps["decompress"].append(ov)
+                shares_round_trip(data, codec, STREAM, devs, blob, route,
+                                  f"{codec} in {what}, round {rep}")
                 if rep == 0:
                     c = read_counts()
+            # the overlaps, from the spans of as many rounds more; a
+            # round's calls: compress, decompress and, for cheetah and
+            # lion, the device route's decompress, whose overlap is kept
+            with spanned() as calls:
+                for rep in range(SHARE_REPEATS, 2 * SHARE_REPEATS):
+                    shares_round_trip(data, codec, STREAM, devs, blob, route,
+                                      f"{codec} in {what}, round {rep}")
+            per_round = 2 if codec == "chameleon" else 3
+            overlaps = {"compress": [], "decompress": []}
+            for rep in range(SHARE_REPEATS):
+                (ov, n_c), *_, (ov_d, n_d) = calls[rep * per_round:
+                                                   (rep + 1) * per_round]
+                if ov <= 0 and len(devs) == 2:
+                    raise AssertionError(f"(t) {codec} in {what}, traced "
+                                         f"round {rep}: no two shares ran "
+                                         "at once")
+                overlaps["compress"].append(ov)
+                overlaps["decompress"].append(ov_d)
             low = {k: c[k] for k in PATH_KERNELS[codec] if c[k] < len(devs)}
             if low:
                 raise AssertionError(f"(t) {codec} in {what}: kernels "
@@ -1788,9 +1802,10 @@ def phase_shares(dev, data: bytes, blobs: dict, conv: dict,
                         "device-route decompress of the alphabet input")
             log(f"(t) {codec} corpus in {what} ({len(devs)} devices, "
                 f"{n_c} compress tasks, {n_d} decompress tasks): "
-                f"{SHARE_REPEATS} round trips, every container equal to one "
-                f"device's, every round trip exact; two or more tasks in "
-                f"flight for {fmt_range(overlaps['compress'])} of the "
+                f"{2 * SHARE_REPEATS} round trips ({SHARE_REPEATS} traced), "
+                f"every container equal to one device's, every round trip "
+                f"exact; two or more tasks in flight for "
+                f"{fmt_range(overlaps['compress'])} of the "
                 f"compress wall and {fmt_range(overlaps['decompress'])} of "
                 f"the {dec_what} wall; launches of the first round {c}, "
                 f"{per_share} a share")
@@ -1860,8 +1875,8 @@ def share_options(dev, data: bytes, main_blob: bytes, small_blob: bytes,
     and in 4 shares of 1 MiB streams (3 streams a share: packroute with
     several clusters a stream, whose launches on the shares' streams run
     in launch order): each container equal to one device's, the kernel
-    launched at least once a share, the tasks in flight at once."""
-    from density_tpu_torch import container
+    launched at least once a share, the tasks in flight at once: one
+    call untraced, then one in a profiler session for the overlaps."""
     for what, stream, want, kernel, devs in (
             ("16 KiB streams", SMALL_STREAMS[1], small_blob, "pack",
              [dev] * 2),
@@ -1869,20 +1884,20 @@ def share_options(dev, data: bytes, main_blob: bytes, small_blob: bytes,
              [dev] * 2),
             ("1 MiB streams", LARGE_STREAMS[0], mib_blob, "packroute",
              [dev] * 4)):
+        where = f"chameleon in {len(devs)} shares, {what}"
         reset_counts()
         if kernel == "bitonic":
             os.environ["DENSITY_TPU_SORT"] = "bitonic"
         try:
-            got, ov, n = spanned(lambda: container.compress(
-                data, "chameleon", stream, device=devs))
-            back, ov_d, _ = spanned(lambda: container.decompress(
-                got, device=devs))
+            shares_round_trip(data, "chameleon", stream, devs, want, None,
+                              where)
+            c = read_counts()
+            with spanned() as calls:
+                shares_round_trip(data, "chameleon", stream, devs, want,
+                                  None, f"{where}, traced")
         finally:
             os.environ.pop("DENSITY_TPU_SORT", None)
-        c = read_counts()
-        if got != want or back != data:
-            raise AssertionError(f"(t) chameleon in {len(devs)} shares, "
-                                 f"{what}: differs from one device's")
+        (ov, n), (ov_d, _) = calls
         if c[kernel] < len(devs) or ov <= 0:
             raise AssertionError(f"(t) chameleon in {len(devs)} shares, "
                                  f"{what}: {kernel} launched {c[kernel]} "
@@ -2463,8 +2478,6 @@ def main() -> int:
     big["lion"] = lion_sizes[LARGE_STREAMS[1]]
     phase_codec_edges(dev, rnd, "lion")
     one = {"chameleon": main_blob, "cheetah": cheetah_blob, "lion": lion_blob}
-    phase_shares(dev, data, one, conv, small_blobs[SMALL_STREAMS[1]],
-                 large_blobs[LARGE_STREAMS[0]], args.parent, args.seed)
     from density_tpu_torch import container
     rank_blobs = {}
     for name, (d, stream) in rank_inputs(args.seed).items():
@@ -2499,6 +2512,10 @@ def main() -> int:
         conv_data, _, conv_dargs = conv[codec]
         time_codec(dev, codec, paths[codec][0], conv_dargs, conv_data, data,
                    blob)
+    # (t) after (f): with (t) before it in one process, (f)'s profiler
+    # sessions came back with no device event in most runs (PERF.md)
+    phase_shares(dev, data, one, conv, small_blobs[SMALL_STREAMS[1]],
+                 large_blobs[LARGE_STREAMS[0]], args.parent, args.seed)
     kernels = [dict(name=name, route="cuda",
                     source=f"density_tpu_torch/csrc/{name}.cu",
                     replaces=REPLACES[name], launches=counts[name],

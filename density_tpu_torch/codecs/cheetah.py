@@ -37,6 +37,7 @@ from density_tpu_torch.engine.grouping import (
     seg_sel2_before, shift_right)
 from density_tpu_torch.hostsync import read
 from density_tpu_torch.kernels.packroute import signature_words
+from density_tpu_torch.tracing import span
 
 Q = SPEC.quads_per_block  # 32
 SIG_WORDS = SPEC.sig_words  # 4
@@ -266,16 +267,18 @@ def resolve(flags, w0, w1, valid, max_rounds: int = MAX_ROUNDS):
     changed = torch.ones(S, dtype=torch.bool, device=dev)
     rounds = 0
     while rounds < max_rounds and (rounds == 0 or bool(read(changed.any()))):
-        ctx = ctx_fill(torch.where(nonpred, key, hash_quads(quads)), valid)
-        ck_s, ck2_s, q_s = sort(torch.where(valid, ctx, 1 << 16), ckey_lo,
-                                quads, n_keys=2)
-        fill, _ = seg_last_active_before(ck_s != shift_right(ck_s, -1), q_s,
-                                         (ck2_s & 1) == 1)
-        _, pv = sort(ck2_s >> 1, fill, n_keys=1)
-        new = torch.where(is_pred, pv, quads)
-        changed = torch.any((new != quads) & is_pred, dim=1)
-        quads = new
-        rounds += 1
+        with span("engine.resolve_round"):
+            ctx = ctx_fill(torch.where(nonpred, key, hash_quads(quads)),
+                           valid)
+            ck_s, ck2_s, q_s = sort(torch.where(valid, ctx, 1 << 16),
+                                    ckey_lo, quads, n_keys=2)
+            fill, _ = seg_last_active_before(ck_s != shift_right(ck_s, -1),
+                                             q_s, (ck2_s & 1) == 1)
+            _, pv = sort(ck2_s >> 1, fill, n_keys=1)
+            new = torch.where(is_pred, pv, quads)
+            changed = torch.any((new != quads) & is_pred, dim=1)
+            quads = new
+            rounds += 1
     # a stream unchanged in the last round is at its own fixpoint (its
     # update reads only its own positions), hence exactly decoded
     return quads, ~changed, rounds

@@ -38,6 +38,7 @@ from density_tpu_torch.engine.grouping import hash_quads
 from density_tpu_torch.engine.protection import replay_fsm
 from density_tpu_torch.hostsync import masked, read, to_card
 from density_tpu_torch.kernels import pack, packroute
+from density_tpu_torch.tracing import traced
 
 # Plans of the fixed point over the copy-block set before the batch goes
 # to the native encoder. Its fixed point is unique (a block's copy
@@ -101,6 +102,7 @@ def pack_module(n_q: int):
     return pack
 
 
+@traced("engine.plan")
 def fused(pipe: Pipeline, quads, nbytes):
     """Copy-free plan + pack assembly + totals + the no-copy certificate.
 
@@ -120,6 +122,7 @@ def fused(pipe: Pipeline, quads, nbytes):
     return out, totals, ok, (flags, pw, w0, w1, real, bits)
 
 
+@traced("engine.plan_masked")
 def plan_masked(pipe: Pipeline, quads, nbytes, copy):
     """General plan under a copy-block hypothesis (S, nb)."""
     n_q = quads.shape[1]
@@ -132,6 +135,7 @@ def plan_masked(pipe: Pipeline, quads, nbytes, copy):
     return flags, pw, w0, w1, valid, bits
 
 
+@traced("engine.fsm")
 def step_fsm(bits, nbytes, BLOCK):
     """Copy decisions of the protection FSM (host), real blocks only."""
     bits_np = read(bits)
@@ -140,6 +144,7 @@ def step_fsm(bits, nbytes, BLOCK):
     return replay_fsm(bits_np) & (np.arange(nb)[None, :] < nbr[:, None])
 
 
+@traced("engine.assemble")
 def assemble_masked(pipe: Pipeline, quads, nbytes, copy, flags, pw, w0, w1,
                     valid):
     """With-copy assembly by scatters (`assemble_one`): [signature]
@@ -206,6 +211,7 @@ def assemble_masked(pipe: Pipeline, quads, nbytes, copy, flags, pw, w0, w1,
     return out.reshape(S, ow), totals
 
 
+@traced("engine.encode")
 def run_encode(pipe: Pipeline, quads, nbytes):
     """Encode (S, n_q) staged quads. The fused copy-free pass is the
     whole job when every stream's certificate holds; otherwise the

@@ -1,8 +1,8 @@
 """The host's waits for the card, and the turns that the shares' workers
 take at the host.
 
-Over several devices the shares of a container run at once, one worker
-thread each (`parallel.mesh.run_shares`). PyTorch ops release the
+Over several devices the shares of a container run at once, each on a
+worker thread (`parallel.mesh.run_shares`). PyTorch ops release the
 interpreter lock while they run, so workers that dispatch at the same
 time trade the lock at every op, and each trade wakes a thread: one
 small op from four threads at once costs several times its time alone
@@ -15,6 +15,13 @@ mask's count), `to_card` (a blocking copy onto the card) and `waiting`
 a sync elsewhere would hold the turn while it blocks and run the
 workers in turn. Outside a worker they are the plain calls, so one
 device runs as it did.
+
+Each of `read`, `to_card` and `masked` is a span of the `wait` layer
+(`wait.read`, `wait.to_card`, `wait.masked`; `tracing`), inside which
+the host blocks on the card and runs nothing of the port's own. A
+worker opens the span after it lets go of the turn and closes it before
+it takes the turn back, so the time it then queues for the turn counts
+to the span around the wait, not to the wait.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import threading
 
 import numpy as np
 import torch
+
+from density_tpu_torch.tracing import span
 
 _turn = threading.Lock()
 _worker = threading.local()
@@ -63,17 +72,17 @@ def waiting():
 
 def read(t: torch.Tensor) -> np.ndarray:
     """`t` as a host array: on a card, a read that waits for its stream."""
-    with waiting():
+    with waiting(), span("wait.read"):
         return t.cpu().numpy()
 
 
 def to_card(a: np.ndarray, device) -> torch.Tensor:
     """Host array `a` on `device`: on a card, a blocking copy."""
-    with waiting():
+    with waiting(), span("wait.to_card"):
         return torch.from_numpy(a).to(device)
 
 
 def masked(t: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """`t[mask]`: on a card, it waits for the count of the boolean mask."""
-    with waiting():
+    with waiting(), span("wait.masked"):
         return t[mask]

@@ -6,10 +6,10 @@ is split into contiguous shares, one for each device of a list, and in a
 `torch.distributed` run into one contiguous part for each process first.
 Encode and decode keep every stream on the device that owns it; the only
 communication is the ordered gather of the compressed or decoded bytes.
-Over several devices the shares run at once, one worker thread and one
-CUDA stream each (`run_shares`), as a sharded program runs every device
-at once; the workers take turns at the host and hand it on while they
-wait for their cards (`hostsync`).
+Over several devices the shares run at once, each on a thread of torch's
+inter-op pool and a CUDA stream of its own (`run_shares`), as a sharded
+program runs every device at once; the workers take turns at the host
+and hand it on while they wait for their cards (`hostsync`).
 
 Entry points run on the CUDA cards unless the caller passes
 `device="cpu"` (or a list of devices); they never fall back to the CPU
@@ -17,14 +17,16 @@ on their own. A device named twice in a list takes two shares, so the
 CPU tests stand for several devices with `["cpu"] * k`.
 """
 
-from __future__ import annotations
-
+import functools
+import itertools
 import os
 import threading
+import warnings
 
 import torch
 
 from density_tpu_torch import hostsync
+from density_tpu_torch.tracing import span
 
 
 def _no_cuda() -> RuntimeError:
@@ -113,20 +115,68 @@ def worker_stream(dev: torch.device, i: int):
         return s
 
 
+# The functions of each call of `run_at_once` in flight, by call number.
+_calls: dict = {}
+_numbers = itertools.count()
+
+
+@torch.jit.ignore
+def _run_one(call: int, i: int) -> int:
+    _calls[call][i]()
+    return i
+
+
+def _fork_all(call: int, n: int) -> int:
+    futures = [torch.jit.fork(_run_one, call, i) for i in range(n)]
+    for f in futures:
+        torch.jit.wait(f)
+    return n
+
+
+@functools.cache
+def _forking():
+    """`_fork_all`, compiled by TorchScript at its first use."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return torch.jit.script(_fork_all)
+
+
+def run_at_once(fns: list) -> None:
+    """Runs every function of `fns` at once, each on a thread of torch's
+    inter-op pool, and returns when all have returned. TorchScript's
+    `fork` hands each the calling thread's thread-local state, so a
+    profiler session of the caller records their spans and ops too (a
+    thread started by `threading` inherits none of it). The pool holds
+    `torch.get_num_interop_threads()` threads, one per core unless the
+    process sets another number; functions beyond that start as others
+    return. Each function catches its own faults."""
+    call = next(_numbers)
+    _calls[call] = list(fns)
+    try:
+        _forking()(call, len(fns))
+    finally:
+        del _calls[call]
+
+
 def run_shares(devs: list, tasks: list) -> list:
     """Runs each share's task and returns their results in order.
 
     `tasks` holds (device, fn) pairs; `devs` is the device list of the
     call. With one device the tasks run in turn in the caller's thread,
-    on its current stream. With more, every task runs at once in a
-    worker thread of its own, on a CUDA stream of its own on a card
-    (`worker_stream`), taking turns at the host (`hostsync.turn`):
-    while one worker waits for its card, another dispatches, and the
-    cards run every share's work at once. Every worker is joined before
-    this returns or raises; where tasks fail, the first failing task's
-    exception is raised."""
+    on its current stream. With more, every task runs at once on a
+    thread of torch's inter-op pool (`run_at_once`), on a CUDA stream of
+    its own on a card (`worker_stream`), taking turns at the host
+    (`hostsync.turn`): while one worker waits for its card, another
+    dispatches, and the cards run every share's work at once. Every
+    worker is done before this returns or raises; where tasks fail, the
+    first failing task's exception is raised. Each task is the span
+    `sharding.share`."""
     if len(devs) == 1:
-        return [fn() for _, fn in tasks]
+        results = []
+        for _, fn in tasks:
+            with span("sharding.share"):
+                results.append(fn())
+        return results
     results = [None] * len(tasks)
     faults = [None] * len(tasks)
     streams = [worker_stream(torch.device(
@@ -135,7 +185,7 @@ def run_shares(devs: list, tasks: list) -> list:
         for i, (dev, _) in enumerate(tasks)]
 
     def work(i: int, fn) -> None:
-        with hostsync.turn():
+        with hostsync.turn(), span("sharding.share"):
             try:
                 if streams[i] is None:
                     results[i] = fn()
@@ -147,17 +197,12 @@ def run_shares(devs: list, tasks: list) -> list:
                 if streams[i] is not None:
                     # leave no work of the failed task queued on the card
                     try:
-                        with hostsync.waiting():
+                        with hostsync.waiting(), span("wait.other"):
                             streams[i].synchronize()
                     except RuntimeError:
                         pass  # a CUDA fault: `e` already reports it
-    workers = [threading.Thread(target=work, args=(i, fn),
-                                name=f"density-share-{i}")
-               for i, (_, fn) in enumerate(tasks)]
-    for w in workers:
-        w.start()
-    for w in workers:
-        w.join()
+    run_at_once([functools.partial(work, i, fn)
+                 for i, (_, fn) in enumerate(tasks)])
     for e in faults:
         if e is not None:
             raise e

@@ -56,6 +56,7 @@ from density_tpu_torch.hostsync import read, to_card, waiting
 from density_tpu_torch.kernels import unpack
 from density_tpu_torch.parallel.mesh import (
     process_count, process_index, resolve_devices, run_shares, shares)
+from density_tpu_torch.tracing import span, traced
 
 CODECS = {"chameleon": chameleon, "cheetah": cheetah, "lion": lion}
 
@@ -95,6 +96,7 @@ def _stage_streams_u8(buf: np.ndarray, n: int, s_pad: int, cap_bytes: int,
     return padded
 
 
+@traced("sharding.stage")
 def stage_encode(buf: np.ndarray, n: int, s_real: int, cap_bytes: int,
                  stream_size: int, dev):
     """Device inputs of one encode batch: (quads, nbytes)."""
@@ -113,17 +115,18 @@ def _encode_batch_to_parts(codec, buf, offset, n, s_real, cap_bytes,
     out, totals, converged = layout.run_encode(codec_module(codec).PIPELINE,
                                                quads, nbytes)
     if not converged:  # pathological streams: the exact host encoder
-        with waiting():
+        with span("native.encode"), waiting():
             return native.encode_many(codec, [
                 buf[offset + s * stream_size:
                     min(offset + (s + 1) * stream_size, offset + n)].tobytes()
                 for s in range(s_real)])
-    totals = read(totals)
-    max_words = (int(totals.max()) + 1) // 2
-    # u16 values in int32 -> int16 (two's complement) -> u16 on the host
-    out_np = read(out[:, :max_words].to(torch.int16)).view("<u2")
-    return [out_np[s, :(int(totals[s]) + 1) // 2].tobytes()[:int(totals[s])]
-            for s in range(s_real)]
+    with span("sharding.fetch"):
+        totals = read(totals)
+        max_words = (int(totals.max()) + 1) // 2
+        # u16 values in int32 -> int16 (two's complement) -> u16 on the host
+        out_np = read(out[:, :max_words].to(torch.int16)).view("<u2")
+        return [out_np[s, :(int(totals[s]) + 1) // 2].tobytes()
+                [:int(totals[s])] for s in range(s_real)]
 
 
 def _part(S: int) -> tuple[int, int]:
@@ -155,6 +158,7 @@ def _gather(work, error: type) -> list:
     return [p for parts, _ in every for p in parts]
 
 
+@traced("container.compress")
 def compress(data: bytes, codec: str, stream_size: int, device=None) -> bytes:
     codec_module(codec)
     devs = resolve_devices(device)
@@ -193,6 +197,7 @@ def compress(data: bytes, codec: str, stream_size: int, device=None) -> bytes:
 # Decompression
 # ---------------------------------------------------------------------------
 
+@traced("native.scan")
 def _scan(codec, streams, out_lens):
     """Scan every stream on the host and check each against its decoded
     length. A stream of decoded length 0 is neither scanned nor checked,
@@ -230,6 +235,7 @@ def _scan(codec, streams, out_lens):
     return woff, copyf, nb_real, pred_frac
 
 
+@traced("sharding.stage")
 def _stage(streams, out_lens, woff, copyf, nb_real, dev):
     """Device inputs of the decode: (words, woff, is_copy, nb_real,
     out_len), the words (S, W) u16 values in int32."""
@@ -247,6 +253,7 @@ def _stage(streams, out_lens, woff, copyf, nb_real, dev):
         words, woff, copyf, nb_real, np.asarray(out_lens, np.int32)))
 
 
+@traced("engine.decode")
 def decode_batch(words, woff, is_copy, nb_real, out_len,
                  codec: str = "chameleon"):
     """Device decode of staged streams: (S, NB * BLOCK / 2) int32
@@ -263,6 +270,7 @@ def decode_batch(words, woff, is_copy, nb_real, out_len,
     return out, None, ~ok
 
 
+@traced("sharding.fetch")
 def _fetch(out_words, bad, redo, max_words: int):
     """One share's halfwords and flags in one host copy: (u16 (S,
     max_words) halfwords, malformed flag, (S,) redo flags)."""
@@ -296,6 +304,7 @@ def _finish(out_words, bad, redo, streams, out_lens, copyf, nb_real,
                  streams, out_lens, copyf, nb_real, codec)
 
 
+@traced("sharding.join")
 def _join(fetched, streams, out_lens, copyf, nb_real,
           codec: str = "chameleon") -> list[bytes]:
     """The shares' fetched halfwords and flags (`_fetch`'s, in stream
@@ -315,7 +324,9 @@ def _join(fetched, streams, out_lens, copyf, nb_real,
             parts.append(b"")
             continue
         if again[s]:
-            parts.append(native.decode(codec, stream, decoded_size_hint=ol))
+            with span("native.decode"):
+                parts.append(native.decode(codec, stream,
+                                           decoded_size_hint=ol))
             continue
         chunk = bytearray(out_np[s, :(ol + 1) // 2].tobytes()[:ol])
         ragged = ol % 4
@@ -422,6 +433,7 @@ def route(codec: str, pred_frac: float) -> str:
     return "device"
 
 
+@traced("container.decompress")
 def decompress(data: bytes, device=None) -> bytes:
     codec, original_len, streams, out_lens = _streams(data)
     if original_len == 0:
@@ -434,8 +446,9 @@ def decompress(data: bytes, device=None) -> bytes:
     def decode_part():
         if route(codec, pred_frac) == "pool":
             live = [s for s in range(lo, hi) if out_lens[s] > 0]
-            return native.decode_many(codec, [streams[s] for s in live],
-                                      [int(out_lens[s]) for s in live])
+            with span("native.decode"):
+                return native.decode_many(codec, [streams[s] for s in live],
+                                          [int(out_lens[s]) for s in live])
         return _decode_shares(codec, streams, out_lens, woff, copyf,
                               nb_real, lo, hi, devs)
     out = b"".join(_gather(decode_part, DecodeError))

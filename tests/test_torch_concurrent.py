@@ -98,6 +98,26 @@ def test_compress_shares_run_at_once(monkeypatch, k, tail):
     assert threading.current_thread() not in ran
 
 
+def test_traced_shares_run_at_once(monkeypatch):
+    """Under a profiler session the shares run at once on the same
+    workers as without one, and each worker's task is its span."""
+    k = 3
+    data = _input("chameleon", 2 * k, 1000)
+    want = pcontainer.compress(data, "chameleon", STREAM, device="cpu")
+    ran = _barrier_tasks(monkeypatch, "_encode_batch_to_parts", k + 1)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = pcontainer.compress(data, "chameleon", STREAM,
+                                  device=["cpu"] * k)
+    assert got == want
+    assert len(set(ran)) == k + 1
+    assert threading.current_thread() not in ran
+    shares = [e for e in prof.events()
+              if e.name == "density.sharding.share"]
+    assert len(shares) == k + 1
+    assert len({e.thread for e in shares}) == k + 1
+
+
 @pytest.mark.parametrize("k", [2, 3])
 @pytest.mark.parametrize("codec", ["chameleon", "cheetah", "lion"])
 def test_decompress_shares_run_at_once(monkeypatch, codec, k):
@@ -138,17 +158,17 @@ def test_shares_match_one_device(codec, n_full, tail):
 
 def test_one_device_starts_no_worker(monkeypatch):
     """One device: its batches (the share and the tail) run in turn in
-    the caller's thread, and no thread is started."""
+    the caller's thread, and no worker is started."""
     data = _input("chameleon", 3, 1000)
     for device in ("cpu", ["cpu"]):
         ran = _barrier_tasks(monkeypatch, "_encode_batch_to_parts", 1)
         started = []
-        thread = mesh.threading.Thread
+        run_at_once = mesh.run_at_once
 
-        def spy(*args, **kwargs):
-            started.append(1)
-            return thread(*args, **kwargs)
-        monkeypatch.setattr(mesh.threading, "Thread", spy)
+        def spy(fns):
+            started.append(len(fns))
+            return run_at_once(fns)
+        monkeypatch.setattr(mesh, "run_at_once", spy)
         pcontainer.compress(data, "chameleon", STREAM, device=device)
         monkeypatch.undo()
         assert ran == [threading.current_thread()] * 2

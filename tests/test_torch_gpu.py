@@ -755,3 +755,43 @@ def test_kernels_on_a_second_card():
         assert container.decompress(one, device=devs) == data
     blob = container.compress(data, "chameleon", 16384, device=second)
     assert container.decompress(blob, device=second) == data
+
+
+def test_a_span_encloses_its_kernels_on_the_profilers_clock(cuda):
+    """A `density.*` span around a kernel's launches and a synchronise
+    encloses the kernels' device events in the same profiler trace: the
+    port's spans and the card's events share one clock. While a session
+    records, the share workers' spans reach it too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from density_tpu_torch import tracing
+    rng = np.random.default_rng(9)
+    arrs = [a.to(cuda) for a in _sort_inputs(rng, 38, 65536, 1, 2, False)]
+    bigsort.sort(*arrs, n_keys=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with tracing.span("engine.plan"):
+            bigsort.sort(*arrs, n_keys=1)
+            torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    (span,) = [e for e in events if e.device_type() == DeviceType.CPU
+               and e.name() == "density.engine.plan"]
+    lo, hi = span.start_ns(), span.start_ns() + span.duration_ns()
+    kernels = [e for e in events if e.device_type() != DeviceType.CPU
+               and not e.is_user_annotation()
+               and any(k in e.name() for k in ("tile_kernel",
+                                                 "global_kernel"))]
+    assert kernels
+    for k in kernels:
+        assert lo <= k.start_ns() and k.start_ns() + k.duration_ns() <= hi
+    data = _data(10, 3 * 65536 + 11)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        blob = container.compress(data, "chameleon", 65536,
+                                  device=[cuda, cuda])
+    assert blob == container.compress(data, "chameleon", 65536, device=cuda)
+    shares = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CPU
+              and e.name() == "density.sharding.share"]
+    assert len(shares) == 3  # two shares and the tail's batch

@@ -160,7 +160,6 @@ def traced(codec: str, data: bytes, devs: list, name: str,
            out_dir: str) -> dict:
     """One traced compress: wall and the device time summed over cards."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from density_tpu_torch import container
     container.compress(data, codec, cs.STREAM, device=devs)
@@ -174,7 +173,7 @@ def traced(codec: str, data: bytes, devs: list, name: str,
         wall = (time.perf_counter() - t) * 1e3
     ka = prof.key_averages()
     busy = sum(e.self_device_time_total for e in ka
-               if e.device_type != DeviceType.CPU) / 1e3
+               if cs.device_work(e)) / 1e3
     with open(os.path.join(out_dir, f"profile_shares_{codec}_"
                            f"{name.replace(' ', '_').replace(':', '')}.txt"),
               "w") as f:
