@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out DIR] [--seed N] [--parent DIR]
 
 Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
-  (a) build the five CUDA kernels from `density_tpu_torch/csrc/` and the
+  (a) build the six CUDA kernels from `density_tpu_torch/csrc/` and the
       native host runtime from `density_tpu_torch/native/`;
   (b) hold each kernel against its plain PyTorch version on the card,
       bit for bit, at the shapes of the paths below (and a
@@ -18,7 +18,9 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
       the planner's 3-array 2-key sorts (S=38 x 65536, one 2^22-quad
       row), the planner's packed sorts, packroute and pack at q=32,
       flag_bits=2; and the same four at lion's shapes (its resolve's
-      sort keys, packroute and pack at q=16, flag_bits=3);
+      sort keys, packroute and pack at q=16, flag_bits=3); the MTF-5 scan
+      on the operands lion's copy-free plan hands it (S=38 x 65536, the
+      tail's S=1 x 65536, the corpus as one 2^22-quad row);
   (c) the main path: chameleon compress and decompress on the card of a
       10,192,446-byte text corpus in 256 KiB streams, with every
       kernel's launch count read around it; stream bytes held against
@@ -26,7 +28,9 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
   (d) incompressible and mixed inputs (fixed point, copy blocks, ragged
       lengths);
   (e) the launch counts: bigsort, packroute and unpack from (c), pack
-      from (g), bitonic from (h);
+      from (g), bitonic from (h), the MTF-5 scan from (p): one launch a
+      plan of lion's (copy-free and masked), none in chameleon's and
+      cheetah's compress;
   (f) timings: device-resident encode and decode with CUDA events, at
       256 KiB, 32 KiB and 16 KiB streams; the device time of each
       kernel, its plain version and the library call beside it, from
@@ -42,7 +46,9 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
       encode (corpus, 256 KiB) and decode (phase l's input), the host
       pool's decode of the corpus, their host syncs and traces; the same
       for lion (its decode on phase q's input), and packroute (S=38 x
-      65536) and pack (S=622 x 4096) on lion's plans;
+      65536) and pack (S=622 x 4096) on lion's plans; the MTF-5 scan at
+      (b)'s three shapes, beside its bound and its plain version (no
+      library call computes it);
   (g) small streams: the corpus in 32 KiB and 16 KiB streams (4096- and
       8192-quad shapes, the pack kernel), compress and decompress on the
       card with launch counts, three streams of each held against the
@@ -124,7 +130,7 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
       lion also on the device route; the seven adversarial FSM inputs
       of the JAX package's fuzz suite encode with each codec on the card
       to `native.encode`'s bytes under both sort options; the golden
-      vectors both ways; all five kernels launched in the phase.
+      vectors both ways; all six kernels launched in the phase.
 Phase (t) runs last, after (e) and (f), whose profiler sessions came
 back with no device event in most runs that had run (t) before them.
 Prints the card's name and power limit, a `kernels` JSON line and, last,
@@ -172,6 +178,8 @@ REPLACES = {
     "unpack": "density_tpu/kernels/unpack.py:379",
     "pack": "density_tpu/kernels/pack.py:279",
     "bitonic": "density_tpu/kernels/bitonic.py:121",
+    # no Pallas kernel: the JAX package's jax.lax.associative_scan
+    "mtf": "density_tpu/engine/mtf.py:54",
 }
 CHAM = dict(q=64, sig_words=4, block=256, flag_bits=1)
 CHEE = dict(q=32, sig_words=4, block=128, flag_bits=2)
@@ -308,9 +316,9 @@ def pack_bound(S: int, N: int, q: int, sig_words: int):
 
 def kernel_modules() -> dict:
     from density_tpu_torch.kernels import (
-        bigsort, bitonic, pack, packroute, unpack)
+        bigsort, bitonic, mtf, pack, packroute, unpack)
     return {"bigsort": bigsort, "packroute": packroute, "unpack": unpack,
-            "pack": pack, "bitonic": bitonic}
+            "pack": pack, "bitonic": bitonic, "mtf": mtf}
 
 
 def reset_counts() -> None:
@@ -1146,22 +1154,34 @@ def alphabet_input(seed: int) -> bytes:
 def compress_on_device(dev, data: bytes, codec: str, stream: int):
     """container.compress on the card, failing if any batch was left to
     the native encoder (a fixed point that did not converge): the bytes
-    must be the card's. Returns the container and the masked plans the
-    batches' fixed points made."""
+    must be the card's. Returns the container and the plans the batches
+    made: (copy-free, masked ones of the fixed point)."""
     from density_tpu_torch import container, native
     from density_tpu_torch.engine import layout
-    calls, plans = [], []
-    many, masked = native.encode_many, layout.plan_masked
+    calls, fast, plans = [], [], []
+    many, fused, masked = native.encode_many, layout.fused, layout.plan_masked
     native.encode_many = lambda *a: calls.append(1) or many(*a)
+    layout.fused = lambda *a: fast.append(1) or fused(*a)
     layout.plan_masked = lambda *a: plans.append(1) or masked(*a)
     try:
         blob = container.compress(data, codec, stream, device=dev)
     finally:
-        native.encode_many, layout.plan_masked = many, masked
+        native.encode_many, layout.fused, layout.plan_masked = (
+            many, fused, masked)
     if calls:
         raise AssertionError(f"{codec} at {stream}-byte streams: {len(calls)} "
                              "batch(es) went to the native encoder")
-    return blob, len(plans)
+    return blob, (len(fast), len(plans))
+
+
+def check_mtf_per_plan(codec: str, counts: dict, plans) -> None:
+    """(e) Lion's planner scans its prediction queue once a plan, in one
+    launch of the MTF-5 kernel; chameleon and cheetah never launch it."""
+    want = sum(plans) if codec == "lion" else 0
+    if counts["mtf"] != want:
+        raise AssertionError(f"{codec}: {counts['mtf']} MTF-5 launches for "
+                             f"{plans[0]} copy-free and {plans[1]} masked "
+                             f"plans (want {want})")
 
 
 def codec_inputs(dev, data: bytes, codec: str, stream: int = STREAM):
@@ -1289,6 +1309,7 @@ def phase_codec_main(dev, data: bytes, codec: str):
     blob, plans = compress_on_device(dev, data, codec, STREAM)
     dt = time.time() - t
     counts = read_counts()
+    check_mtf_per_plan(codec, counts, plans)
     parts = payloads(blob)
     chunks = stream_chunks(data, STREAM)
     if parts != native.encode_many(codec, chunks):
@@ -1307,8 +1328,9 @@ def phase_codec_main(dev, data: bytes, codec: str):
         raise AssertionError(f"{codec} round trip differs from the input")
     log(f"({tag}) {codec} main path: {len(data)} bytes in {len(parts)} "
         f"streams -> {len(blob)} bytes (ratio {len(data) / len(blob):.4f}) "
-        f"in {dt:.2f} s host wall, every batch on the card ({plans} masked "
-        f"plans of the fixed point); every stream equals native.encode, "
+        f"in {dt:.2f} s host wall, every batch on the card ({plans[0]} "
+        f"copy-free and {plans[1]} masked plans of the fixed point); every "
+        f"stream equals native.encode, "
         f"streams 0/{len(parts) // 2}/{len(parts) - 1} the CPU path; "
         f"decompress route {sharding.route(codec, meta[-1])} (predicted "
         f"share {meta[-1]:.4f}), round trip exact in {dt_dec:.2f} s; "
@@ -1411,6 +1433,7 @@ def phase_codec_sizes(dev, data: bytes, codec: str, onehot: bool):
         blob, plans = compress_on_device(dev, data, codec, stream)
         dt = time.time() - t
         counts = read_counts()
+        check_mtf_per_plan(codec, counts, plans)
         if payloads(blob) != native.encode_many(codec,
                                                 stream_chunks(data, stream)):
             raise AssertionError(f"{stream}-byte {codec} streams differ from "
@@ -1448,7 +1471,8 @@ def phase_codec_sizes(dev, data: bytes, codec: str, onehot: bool):
         blobs[stream] = blob
         log(f"({tag}) {codec} {stream}-byte streams: {len(data)} bytes -> "
             f"{len(blob)} (ratio {ratios[stream]:.4f}) in {dt:.2f} s host "
-            f"wall on the card ({plans} masked plans), equal to native.encode, round trip exact, byte-identical "
+            f"wall on the card ({plans[0]} copy-free and {plans[1]} masked "
+            f"plans), equal to native.encode, round trip exact, byte-identical "
             f"under DENSITY_TPU_SORT=bitonic{also}; launches {counts}, under "
             f"bitonic {bcounts}")
     return ratios, small_counts, blobs
@@ -1538,6 +1562,72 @@ def time_lion_packs(lion_in, lion_small) -> None:
                   "launch per call"))
 
 
+def mtf_plan_inputs(quads, nbytes):
+    """The MTF-5 scan's operands (first, values, valid) as lion's
+    copy-free plan of `quads` hands them over."""
+    from density_tpu_torch.codecs import lion
+    seen, scan = [], lion.mtf_depths_sorted
+    lion.mtf_depths_sorted = lambda *a: seen.append(a[:3]) or scan(*a)
+    try:
+        lion.plan_fast(quads, nbytes)
+    finally:
+        lion.mtf_depths_sorted = scan
+    (ops,) = seen
+    return ops
+
+
+def mtf_shapes(dev, data: bytes, lion_in, large_quads) -> dict:
+    """The scan's operands at lion's plan shapes: the corpus's 38 full
+    256 KiB streams, its tail (S=1 x 65536) and the corpus as one
+    2^22-quad row."""
+    import torch
+    from density_tpu_torch.engine import layout
+    from density_tpu_torch.parallel import sharding
+    tail = data[len(data) // STREAM * STREAM:]
+    tail_quads, tail_nb = sharding.stage_encode(
+        np.frombuffer(tail, np.uint8), len(tail), 1,
+        layout.bucket_bytes(STREAM, 64), STREAM, dev)
+    big_nb = torch.tensor([len(data)], dtype=torch.int32, device=dev)
+    return {f"S={q.shape[0]} n={q.shape[1]}": mtf_plan_inputs(q, nb)
+            for q, nb in ((lion_in["quads"], lion_in["nbytes"]),
+                          (tail_quads, tail_nb), (large_quads, big_nb))}
+
+
+def parity_mtf(shapes: dict) -> int:
+    """(b) The MTF-5 kernel against its plain version on lion's plan
+    operands; returns the largest error."""
+    import torch
+    from density_tpu_torch.kernels import mtf
+    err = 0
+    for ops in shapes.values():
+        got = mtf.depths(*ops, 5)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, mtf.depths_plain(*ops, 5)))
+    log(f"(b) mtf at lion's plan shapes {sorted(shapes)}: max_abs_err {err}")
+    return err
+
+
+def time_mtf(shapes: dict) -> dict:
+    """(f) The MTF-5 kernel at lion's plan shapes with its kernel launches
+    per scan, beside its bound (each element's two flags and value read
+    and its depth written once) and its plain version. Returns the row of
+    the 38-stream shape."""
+    from density_tpu_torch.kernels import mtf
+    rows = {}
+    for shape, ops in shapes.items():
+        n_el = ops[1].numel()
+        ms, n = device_profile(lambda: mtf.depths(*ops, 5))
+        if round(n) != 1:
+            raise AssertionError(f"mtf made {n:g} kernel launches a scan")
+        rows[shape] = dict(
+            ms=ms, plain_ms=device_ms(lambda: mtf.depths_plain(*ops, 5),
+                                      iters=3),
+            library_ms=None, bound=bound_ms(10 * n_el, 0),
+            shape=f"lion's plan: {shape}; {n:g} kernel launch per scan")
+        log_row("mtf", rows[shape])
+    return next(iter(rows.values()))
+
+
 def time_codec(dev, codec, inputs, conv_dargs, conv_data, data,
                blob) -> None:
     """A codec's device-resident encode (the corpus at 256 KiB) and decode
@@ -1590,7 +1680,7 @@ RANK_TIMEOUT = 300  # seconds for each rank of phase (u)
 RANK_INPUTS = ("corpus", "alphabet", "vocab")
 PATH_KERNELS = {"chameleon": ("bigsort", "packroute", "unpack"),
                 "cheetah": ("bigsort", "packroute"),
-                "lion": ("bigsort", "packroute")}
+                "lion": ("bigsort", "packroute", "mtf")}
 
 
 def vocab_input(n_streams: int = 4, stream_size: int = 2048) -> bytes:
@@ -2383,7 +2473,7 @@ def phase_faults() -> None:
     cheetah's and lion's also on the device route; the seven adversarial
     FSM inputs encode to `native.encode`'s bytes with each codec under
     both sort options, and the golden vectors both ways. Every one of
-    the five kernels must launch in it."""
+    the six kernels must launch in it."""
     here = os.path.dirname(os.path.abspath(__file__))
     p = subprocess.Popen([sys.executable, "-c", FAULT_WORKER], cwd=here,
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -2454,6 +2544,8 @@ def main() -> int:
         for k, e in parity_codec(dev, codec, big_in, small_in,
                                  large_quads).items():
             errs[k] = max(errs[k], e)
+    mtf_ops = mtf_shapes(dev, data, paths["lion"][0], large_quads)
+    errs["mtf"] = parity_mtf(mtf_ops)
     main_counts, main_blob = phase_main_path(dev, data)
     phase_incompressible(dev, rnd)
     small_counts, small_blobs = phase_small_streams(dev, data)
@@ -2497,9 +2589,11 @@ def main() -> int:
     counts = {k: main_counts[k] for k in ("bigsort", "packroute", "unpack")}
     counts["pack"] = small_counts["pack"]
     counts["bitonic"] = opt_counts["bitonic"]
+    counts["mtf"] = lion_counts["mtf"]
     log(f"(e) launches: bigsort/packroute/unpack on the main path (c), "
         f"pack on the small-stream paths (g), bitonic under "
-        f"DENSITY_TPU_SORT=bitonic (h): {counts}; on cheetah's main path "
+        f"DENSITY_TPU_SORT=bitonic (h), mtf on lion's main path (p), one "
+        f"a plan: {counts}; on cheetah's main path "
         f"(k): {cheetah_counts}; on lion's main path (p): {lion_counts}, "
         f"its 16 KiB path (r): {lion_small_counts}")
     if min(counts.values()) < 1:
@@ -2508,6 +2602,7 @@ def main() -> int:
     rows.update(phase_small_timing(dev, inputs, small))
     time_sort_3(dev, paths["cheetah"][0], large_quads)
     time_lion_packs(*paths["lion"])
+    rows["mtf"] = time_mtf(mtf_ops)
     for codec, blob in (("cheetah", cheetah_blob), ("lion", lion_blob)):
         conv_data, _, conv_dargs = conv[codec]
         time_codec(dev, codec, paths[codec][0], conv_dargs, conv_data, data,

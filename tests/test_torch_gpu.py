@@ -795,3 +795,135 @@ def test_a_span_encloses_its_kernels_on_the_profilers_clock(cuda):
               if e.device_type() == DeviceType.CPU
               and e.name() == "density.sharding.share"]
     assert len(shares) == 3  # two shares and the tail's batch
+
+
+# ------------------------------------------------------ MTF-5 scan (mtf.cu)
+
+MTF_KINDS = ["plan", "one_segment", "each_alone", "zeros", "invalid_runs",
+             "boundaries"]
+
+
+def _mtf_inputs(kind, S, n, seed):
+    """(first, values, valid) of one kind on the CPU. "plan": lion's own
+    planner input, the quads of `_data` sorted by context (the hash of the
+    quad before, ties by index) with their fingerprints, a quarter of the
+    tail invalid as past a stream's end; "boundaries": segments starting
+    on, and one before, every run of a thread (16 elements), warp (512)
+    and block (4096) of the kernel's tiles."""
+    from density_tpu_torch.codecs import lion
+    from density_tpu_torch.engine.grouping import hash_quads, shift_right
+    rng = np.random.default_rng(seed)
+    if kind == "plan":
+        buf = np.frombuffer(_data(seed, S * n * 4), np.int32).reshape(S, n)
+        quads = torch.from_numpy(buf.copy())
+        ctx = shift_right(hash_quads(quads), 0).to(torch.int64)
+        idx = torch.arange(n)
+        key = (ctx << 32) | idx
+        order = torch.sort(key, dim=-1).indices
+        c_s = torch.gather(ctx, -1, order)
+        first = c_s != shift_right(c_s, -1)
+        vals = torch.gather(lion.sig32(quads), -1, order)
+        valid = torch.gather(idx.expand(S, n), -1, order) < n - n // 4
+        return first, vals, valid
+    first = rng.random((S, n)) < 0.05
+    vals = rng.integers(-3, 4, (S, n)).astype(np.int32)
+    valid = rng.random((S, n)) < 0.9
+    if kind == "one_segment":
+        first[:] = False
+        first[:, 0] = True
+    elif kind == "each_alone":
+        first[:] = True
+    elif kind == "zeros":
+        vals[:] = 0
+        first = rng.random((S, n)) < 0.001
+    elif kind == "invalid_runs":
+        valid = np.broadcast_to(np.arange(n) // 37 % 3 != 0, (S, n)).copy()
+        valid &= rng.random((S, n)) < 0.95
+        first = rng.random((S, n)) < 0.002
+    elif kind == "boundaries":
+        first[:] = False
+        for step in (16, 512, 4096):
+            first[:, step::step] = True
+            first[:, step - 1::step] = True
+    return tuple(torch.from_numpy(x) for x in (first, vals, valid))
+
+
+@pytest.mark.parametrize("kind", MTF_KINDS)
+@pytest.mark.parametrize("S,n", [(38, 4096), (1, 4096), (38, 65536),
+                                 (1, 65536), (1, 1 << 22)])
+def test_mtf_matches_plain(cuda, S, n, kind):
+    """The kernel equals the plain doubling scan bit for bit, in rows of
+    one tile and of many tiles (whose look-back carries the queue)."""
+    from density_tpu_torch.kernels import mtf
+    first, vals, valid = (x.to(cuda) for x in _mtf_inputs(kind, S, n, n + S))
+    got = mtf.depths(first, vals, valid, 5)
+    torch.cuda.synchronize()
+    want = mtf.depths_plain(first, vals, valid, 5)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert bool((want < 5).any())
+
+
+def test_mtf_depths_in_group_on_card(cuda):
+    """`mtf_depths_in_group` on the card (the masked plan's route to the
+    kernel) equals the CPU's plain version."""
+    from density_tpu_torch.engine.mtf import mtf_depths_in_group
+    rng = np.random.default_rng(21)
+    group = torch.from_numpy(rng.integers(0, 3000, (38, 65536))
+                             .astype(np.int32))
+    _, vals, valid = _mtf_inputs("invalid_runs", 38, 65536, 22)
+    got = mtf_depths_in_group(group.to(cuda), vals.to(cuda), valid.to(cuda),
+                              5)
+    assert torch.equal(got.cpu(), mtf_depths_in_group(group, vals, valid, 5))
+
+
+def test_mtf_one_launch_a_scan(cuda):
+    """A scan is one launch of the wrapper's count and one kernel event in
+    the profiler's trace, and no other kernel runs (the memset of the
+    look-back words is no kernel); lion's copy-free plan scans once."""
+    from density_tpu_torch.codecs import lion
+    from density_tpu_torch.engine.mtf import mtf_depths_sorted
+    from density_tpu_torch.kernels import mtf
+    first, vals, valid = (x.to(cuda) for x in _mtf_inputs("plan", 38, 65536,
+                                                         23))
+    before = mtf.launches
+    mtf_depths_sorted(first, vals, valid, 5)
+    assert mtf.launches == before + 1
+    fn = lambda: mtf_depths_sorted(first, vals, valid, 5)  # noqa: E731
+    assert _traced_launches(fn, names=("mtf_kernel",)) == 3
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    kernels = set()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels |= {e.key for e in prof.key_averages()
+                    if e.device_type != DeviceType.CPU
+                    and not e.key.startswith(("Memset", "Memcpy"))}
+    assert kernels and all("mtf_kernel" in k for k in kernels), kernels
+    quads = torch.from_numpy(np.frombuffer(
+        _data(24, 4 * 65536 * 4), np.int32).reshape(4, 65536).copy())
+    nbytes = torch.full((4,), 4 * 65536, dtype=torch.int32)
+    before = mtf.launches
+    lion.plan_fast(quads.to(cuda), nbytes.to(cuda))
+    assert mtf.launches == before + 1
+
+
+def test_mtf_rejects_what_it_does_not_take(cuda):
+    """On the card the wrapper raises on what the kernel does not take,
+    and never falls back to the plain version."""
+    from density_tpu_torch.kernels import mtf
+    first, vals, valid = (x.to(cuda) for x in _mtf_inputs("plan", 2, 8192,
+                                                         25))
+    before = mtf.launches
+    for args in ((first, vals, valid, 4),
+                 (first, vals.long(), valid, 5),
+                 (first.int(), vals, valid, 5),
+                 (first, vals, valid[:, :4096], 5),
+                 (first[:, ::2], vals[:, ::2], valid[:, ::2], 5),
+                 (first, vals.cpu(), valid, 5)):
+        with pytest.raises(ValueError):
+            mtf.depths(*args)
+    assert mtf.launches == before
+    empty = mtf.depths(first[:0], vals[:0], valid[:0], 5)
+    assert empty.shape == (0, 8192) and mtf.launches == before
