@@ -27,15 +27,16 @@ decoded length against the one it was given, and then takes one of two
 routes for the whole container, as the JAX package's explicit-device
 route does: a cheetah or lion container whose predicted share is above
 `PREDICTED_DEVICE_CUTOFF` decodes on the native runtime's thread pool
-(where there is one); every other container decodes on the devices,
-each share's words and flags read back in one copy by its task and
-joined by the caller in stream order, the ragged-tail bytes stamped on
-the host, and a cheetah or lion
-stream whose context fixpoint did not converge decoded again by the
-native runtime. The route is chosen from the whole container, so every
-share and every process takes the same one; the JAX package's
-multi-process decode always takes the device (`jax.process_count() ==
-1` gates its pool), and the bytes are the same either way.
+(where there is one; the span `native.pool`); every other container
+decodes on the devices, each share's words and flags read back in one
+copy by its task and joined by the caller in stream order, the
+ragged-tail bytes stamped on the host, and a cheetah or lion stream
+whose context fixpoint did not converge decoded again by the native
+runtime (the span `native.decode`). The route is chosen from the whole
+container, so every share and every process takes the same one; the
+JAX package's multi-process decode always takes the device
+(`jax.process_count() == 1` gates its pool), and the bytes are the same
+either way.
 """
 
 from __future__ import annotations
@@ -446,7 +447,7 @@ def decompress(data: bytes, device=None) -> bytes:
     def decode_part():
         if route(codec, pred_frac) == "pool":
             live = [s for s in range(lo, hi) if out_lens[s] > 0]
-            with span("native.decode"):
+            with span("native.pool"):
                 return native.decode_many(codec, [streams[s] for s in live],
                                           [int(out_lens[s]) for s in live])
         return _decode_shares(codec, streams, out_lens, woff, copyf,

@@ -15,7 +15,7 @@ from density_tpu_torch.parallel import sharding
 from portbench import spans as span_reader
 
 STREAM = 65536
-CODECS = ("chameleon", "lion")
+CODECS = ("chameleon", "cheetah", "lion")
 
 
 def _text(seed: int, n: int) -> bytes:
@@ -69,12 +69,15 @@ def traced():
     return out
 
 
-# chameleon decodes on the card; lion's text, of many predicted tokens,
-# on the native runtime's pool (`sharding.route`)
+# chameleon decodes on the card; cheetah's and lion's text, of many
+# predicted tokens, on the native runtime's pool (`sharding.route`)
 DECODE = {"chameleon": {"native.scan", "sharding.share", "sharding.stage",
                         "engine.decode", "sharding.fetch", "sharding.join",
                         "wait.to_card", "wait.read"},
-          "lion": {"native.scan", "native.decode"}}
+          "cheetah": {"native.scan", "native.pool"},
+          "lion": {"native.scan", "native.pool"}}
+# cheetah's planner scans its MTF-2 dictionaries in a span of their own
+PLAN = {"cheetah": {"engine.mtf2"}}
 
 
 @pytest.mark.parametrize("codec", CODECS)
@@ -89,12 +92,17 @@ def test_calls_emit_their_spans_under_their_roots(traced, codec):
     # two batches: the full streams and the ragged tail
     assert names["container.compress"] == {
         "sharding.share", "sharding.stage", "sharding.fetch",
-        "engine.encode", "engine.plan", "wait.to_card", "wait.read"}
+        "engine.encode", "engine.plan", "wait.to_card",
+        "wait.read"} | PLAN.get(codec, set())
     assert names["container.decompress"] == DECODE[codec]
-    plans = [s for s in calls[next(r for r in calls
-                                   if r[0] == "container.compress")]
-             if s[0] == "engine.plan"]
+    compress = calls[next(r for r in calls if r[0] == "container.compress")]
+    plans = [s for s in compress if s[0] == "engine.plan"]
     assert len(plans) == 2
+    # one MTF-2 scan inside each copy-free plan
+    scans = [s for s in compress if s[0] == "engine.mtf2"]
+    assert len(scans) == (2 if PLAN.get(codec) else 0)
+    assert all(sum(p[1] <= s[1] and s[2] <= p[2] for p in plans) == 1
+               for s in scans)
     assert len({s[3] for s in spans}) == 1  # one device: one thread
 
 
@@ -205,3 +213,18 @@ def test_resolve_rounds_are_spans_of_the_device_decode(monkeypatch):
     got = [s for s in spans if s[0] == "engine.resolve_round"]
     assert rounds and len(got) == sum(rounds)
     assert all(decode[1] <= s[1] and s[2] <= decode[2] for s in got)
+
+
+def test_cheetah_scans_its_dictionaries_once_in_every_plan():
+    """Cheetah on text and random bytes in turns: each copy-free plan and
+    each masked plan of the fixed point holds one `engine.mtf2` span."""
+    data = _mixed(10, 2 * STREAM + 1000)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        container.compress(data, "cheetah", STREAM, device="cpu")
+    spans = _spans(prof)
+    plans = [s for s in spans if s[0].startswith("engine.plan")]
+    scans = [s for s in spans if s[0] == "engine.mtf2"]
+    assert any(p[0] == "engine.plan_masked" for p in plans)
+    assert len(scans) == len(plans)
+    for p in plans:
+        assert sum(p[1] <= s[1] and s[2] <= p[2] for s in scans) == 1
