@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out DIR] [--seed N] [--parent DIR]
 
 Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
-  (a) build the six CUDA kernels from `density_tpu_torch/csrc/` and the
+  (a) build the seven CUDA kernels from `density_tpu_torch/csrc/` and the
       native host runtime from `density_tpu_torch/native/`;
   (b) hold each kernel against its plain PyTorch version on the card,
       bit for bit, at the shapes of the paths below (and a
@@ -20,7 +20,10 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
       flag_bits=2; and the same four at lion's shapes (its resolve's
       sort keys, packroute and pack at q=16, flag_bits=3); the MTF-5 scan
       on the operands lion's copy-free plan hands it (S=38 x 65536, the
-      tail's S=1 x 65536, the corpus as one 2^22-quad row);
+      tail's S=1 x 65536, the corpus as one 2^22-quad row); the
+      protection FSM's step, copy set and flags, on the incompressible
+      bits of lion's and cheetah's copy-free plans (S=38 x 4096 and
+      2048 blocks) and lion's tail (S=1 x 4096);
   (c) the main path: chameleon compress and decompress on the card of a
       10,192,446-byte text corpus in 256 KiB streams, with every
       kernel's launch count read around it; stream bytes held against
@@ -30,7 +33,8 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
   (e) the launch counts: bigsort, packroute and unpack from (c), pack
       from (g), bitonic from (h), the MTF-5 scan from (p): one launch a
       plan of lion's (copy-free and masked), none in chameleon's and
-      cheetah's compress;
+      cheetah's compress; the FSM step from (p): one launch a pass of
+      the fixed point, in every codec's compress;
   (f) timings: device-resident encode and decode with CUDA events, at
       256 KiB, 32 KiB and 16 KiB streams; the device time of each
       kernel, its plain version and the library call beside it, from
@@ -48,7 +52,9 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
       for lion (its decode on phase q's input), and packroute (S=38 x
       65536) and pack (S=622 x 4096) on lion's plans; the MTF-5 scan at
       (b)'s three shapes, beside its bound and its plain version (no
-      library call computes it);
+      library call computes it); the FSM step at (b)'s three shapes,
+      beside its bound (bytes once) and the host time of the plain
+      replay;
   (g) small streams: the corpus in 32 KiB and 16 KiB streams (4096- and
       8192-quad shapes, the pack kernel), compress and decompress on the
       card with launch counts, three streams of each held against the
@@ -130,7 +136,7 @@ Needs one CUDA card, `nvcc` and `g++`; imports no JAX. Phases:
       lion also on the device route; the seven adversarial FSM inputs
       of the JAX package's fuzz suite encode with each codec on the card
       to `native.encode`'s bytes under both sort options; the golden
-      vectors both ways; all six kernels launched in the phase.
+      vectors both ways; all seven kernels launched in the phase.
 Phase (t) runs last, after (e) and (f), whose profiler sessions came
 back with no device event in most runs that had run (t) before them.
 Prints the card's name and power limit, a `kernels` JSON line and, last,
@@ -180,6 +186,8 @@ REPLACES = {
     "bitonic": "density_tpu/kernels/bitonic.py:121",
     # no Pallas kernel: the JAX package's jax.lax.associative_scan
     "mtf": "density_tpu/engine/mtf.py:54",
+    # no Pallas kernel: the JAX package's jax.lax.scan
+    "fsm": "density_tpu/engine/protection.py:32",
 }
 CHAM = dict(q=64, sig_words=4, block=256, flag_bits=1)
 CHEE = dict(q=32, sig_words=4, block=128, flag_bits=2)
@@ -316,9 +324,9 @@ def pack_bound(S: int, N: int, q: int, sig_words: int):
 
 def kernel_modules() -> dict:
     from density_tpu_torch.kernels import (
-        bigsort, bitonic, mtf, pack, packroute, unpack)
+        bigsort, bitonic, fsm, mtf, pack, packroute, unpack)
     return {"bigsort": bigsort, "packroute": packroute, "unpack": unpack,
-            "pack": pack, "bitonic": bitonic, "mtf": mtf}
+            "pack": pack, "bitonic": bitonic, "mtf": mtf, "fsm": fsm}
 
 
 def reset_counts() -> None:
@@ -1155,33 +1163,44 @@ def compress_on_device(dev, data: bytes, codec: str, stream: int):
     """container.compress on the card, failing if any batch was left to
     the native encoder (a fixed point that did not converge): the bytes
     must be the card's. Returns the container and the plans the batches
-    made: (copy-free, masked ones of the fixed point)."""
+    made and the passes of their fixed points: (copy-free plans, masked
+    ones, FSM steps)."""
     from density_tpu_torch import container, native
     from density_tpu_torch.engine import layout
-    calls, fast, plans = [], [], []
-    many, fused, masked = native.encode_many, layout.fused, layout.plan_masked
+    calls, fast, plans, steps = [], [], [], []
+    many, fused, masked, step = (native.encode_many, layout.fused,
+                                 layout.plan_masked, layout.step_fsm)
     native.encode_many = lambda *a: calls.append(1) or many(*a)
     layout.fused = lambda *a: fast.append(1) or fused(*a)
     layout.plan_masked = lambda *a: plans.append(1) or masked(*a)
+    layout.step_fsm = lambda *a: steps.append(1) or step(*a)
     try:
         blob = container.compress(data, codec, stream, device=dev)
     finally:
-        native.encode_many, layout.fused, layout.plan_masked = (
-            many, fused, masked)
+        (native.encode_many, layout.fused, layout.plan_masked,
+         layout.step_fsm) = (many, fused, masked, step)
     if calls:
         raise AssertionError(f"{codec} at {stream}-byte streams: {len(calls)} "
                              "batch(es) went to the native encoder")
-    return blob, (len(fast), len(plans))
+    return blob, (len(fast), len(plans), len(steps))
 
 
 def check_mtf_per_plan(codec: str, counts: dict, plans) -> None:
     """(e) Lion's planner scans its prediction queue once a plan, in one
     launch of the MTF-5 kernel; chameleon and cheetah never launch it."""
-    want = sum(plans) if codec == "lion" else 0
+    want = plans[0] + plans[1] if codec == "lion" else 0
     if counts["mtf"] != want:
         raise AssertionError(f"{codec}: {counts['mtf']} MTF-5 launches for "
                              f"{plans[0]} copy-free and {plans[1]} masked "
                              f"plans (want {want})")
+
+
+def check_fsm_per_pass(codec: str, counts: dict, plans) -> None:
+    """(e) Each pass of a fixed point steps the protection FSM in one
+    launch of its kernel, in every codec."""
+    if counts["fsm"] != plans[2]:
+        raise AssertionError(f"{codec}: {counts['fsm']} FSM launches for "
+                             f"{plans[2]} passes of the fixed point")
 
 
 def codec_inputs(dev, data: bytes, codec: str, stream: int = STREAM):
@@ -1310,6 +1329,7 @@ def phase_codec_main(dev, data: bytes, codec: str):
     dt = time.time() - t
     counts = read_counts()
     check_mtf_per_plan(codec, counts, plans)
+    check_fsm_per_pass(codec, counts, plans)
     parts = payloads(blob)
     chunks = stream_chunks(data, STREAM)
     if parts != native.encode_many(codec, chunks):
@@ -1329,8 +1349,8 @@ def phase_codec_main(dev, data: bytes, codec: str):
     log(f"({tag}) {codec} main path: {len(data)} bytes in {len(parts)} "
         f"streams -> {len(blob)} bytes (ratio {len(data) / len(blob):.4f}) "
         f"in {dt:.2f} s host wall, every batch on the card ({plans[0]} "
-        f"copy-free and {plans[1]} masked plans of the fixed point); every "
-        f"stream equals native.encode, "
+        f"copy-free and {plans[1]} masked plans, {plans[2]} passes of the "
+        f"fixed point); every stream equals native.encode, "
         f"streams 0/{len(parts) // 2}/{len(parts) - 1} the CPU path; "
         f"decompress route {sharding.route(codec, meta[-1])} (predicted "
         f"share {meta[-1]:.4f}), round trip exact in {dt_dec:.2f} s; "
@@ -1434,6 +1454,7 @@ def phase_codec_sizes(dev, data: bytes, codec: str, onehot: bool):
         dt = time.time() - t
         counts = read_counts()
         check_mtf_per_plan(codec, counts, plans)
+        check_fsm_per_pass(codec, counts, plans)
         if payloads(blob) != native.encode_many(codec,
                                                 stream_chunks(data, stream)):
             raise AssertionError(f"{stream}-byte {codec} streams differ from "
@@ -1625,6 +1646,81 @@ def time_mtf(shapes: dict) -> dict:
             library_ms=None, bound=bound_ms(10 * n_el, 0),
             shape=f"lion's plan: {shape}; {n:g} kernel launch per scan")
         log_row("mtf", rows[shape])
+    return next(iter(rows.values()))
+
+
+def fsm_shapes(dev, data: bytes, paths: dict) -> dict:
+    """The FSM step's operands (bits, nbytes, block) at the bulk cells'
+    shapes: the incompressible bits of lion's and cheetah's copy-free
+    plans of the corpus's 38 full 256 KiB streams (4096 and 2048 blocks
+    a stream) and of lion's plan of its tail (S=1 x 4096)."""
+    from density_tpu_torch.codecs import cheetah, lion
+    from density_tpu_torch.engine import layout
+    from density_tpu_torch.parallel import sharding
+    tail = data[len(data) // STREAM * STREAM:]
+    tail_in = dict(zip(("quads", "nbytes"), sharding.stage_encode(
+        np.frombuffer(tail, np.uint8), len(tail), 1,
+        layout.bucket_bytes(STREAM, 64), STREAM, dev)))
+    shapes = {}
+    for name, mod, inputs in (("lion", lion, paths["lion"][0]),
+                              ("cheetah", cheetah, paths["cheetah"][0]),
+                              ("lion's tail", lion, tail_in)):
+        bits = mod.plan_fast(inputs["quads"], inputs["nbytes"])[5]
+        S, nb = bits.shape
+        shapes[f"{name}: S={S} nb={nb}"] = (
+            bits.contiguous(), inputs["nbytes"], mod.PIPELINE.BLOCK)
+    return shapes
+
+
+def parity_fsm(shapes: dict) -> int:
+    """(b) The FSM step on the card against its plain replay on the host,
+    copy set and flags, against a copy set of zeros and against the
+    replay's own; returns the largest error."""
+    import torch
+    from density_tpu_torch.kernels import fsm
+    err = 0
+    for bits, nbytes, block in shapes.values():
+        host = (bits.cpu(), nbytes.cpu())
+        zeros = torch.zeros_like(host[0])
+        want = fsm.step_plain(*host, block, zeros)[0]
+        for prev in (zeros, want):
+            want_flags = fsm.step_plain(*host, block, prev)[1]
+            got, flags = fsm.step(bits, nbytes, block, prev.to(bits.device))
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err((got.cpu(), flags.cpu()),
+                                       (want, want_flags)))
+    log(f"(b) fsm at the bulk plans' shapes {sorted(shapes)}: max_abs_err "
+        f"{err}")
+    return err
+
+
+def time_fsm(shapes: dict) -> dict:
+    """(f) The FSM step at (b)'s shapes with its kernel launches per step,
+    beside its bound (the bits and the last copy set read, the new set
+    and nbytes written or read once) and the host milliseconds of the
+    plain replay (`kernels/fsm.py::step_plain` on host copies: the step
+    the fixed point took before the kernel). Returns the row of lion's
+    38-stream shape."""
+    import torch
+    from density_tpu_torch.kernels import fsm
+    rows = {}
+    for shape, (bits, nbytes, block) in shapes.items():
+        prev = torch.zeros_like(bits)
+        ms, n = device_profile(lambda: fsm.step(bits, nbytes, block, prev))
+        if round(n) != 1:
+            raise AssertionError(f"fsm made {n:g} kernel launches a step")
+        host = [x.cpu() for x in (bits, nbytes, prev)]
+        plain = []
+        for _ in range(3):
+            t = time.perf_counter()
+            fsm.step_plain(host[0], host[1], block, host[2])
+            plain.append((time.perf_counter() - t) * 1e3)
+        rows[shape] = dict(
+            ms=ms, plain_ms=min(plain), library_ms=None,
+            bound=bound_ms(3 * bits.numel() + 4 * nbytes.numel(), 0),
+            shape=f"{shape} (block {block}); {n:g} kernel launch per step; "
+                  f"plain = host ms of the replay")
+        log_row("fsm", rows[shape])
     return next(iter(rows.values()))
 
 
@@ -2146,17 +2242,18 @@ def phase_stats(dev, data: bytes, one_blobs: dict, big_blobs: dict) -> None:
                 stage_ms = min(wall_ms(lambda: layout.stage_quads(padded,
                                                                   dev))
                                for _ in range(3))
-                fsm_ms = min(wall_ms(lambda: layout.step_fsm(bits, nbytes,
-                                                             pipe.BLOCK))
-                             for _ in range(3))
+                zeros = torch.zeros_like(bits)
+                fsm_ms = min(wall_ms(lambda: layout.step_fsm(
+                    bits, nbytes, pipe.BLOCK, zeros)) for _ in range(3))
                 t = time.perf_counter()
                 stats.encode_stats(codec, chunk, device=dev)
                 warm = (time.perf_counter() - t) * 1e3
                 plan = (f"; warm {warm:.3f} ms against {plan_ms:.3f} ms for "
                         f"one copy-free plan of the staged row "
                         f"({warm / plan_ms:.2f} plans), {stage_ms:.3f} ms "
-                        f"to stage it and {fsm_ms:.3f} ms for one host "
-                        f"replay of the protection FSM")
+                        f"to stage it and {fsm_ms:.3f} ms for one step "
+                        f"of the protection FSM (a launch and the read of "
+                        f"its flags)")
             log(f"(v) {codec} encode_stats, {what}: equal to stream_stats "
                 f"of the card's stream (ratio {want.ratio:.4f}, "
                 f"{want.copy_blocks} copy blocks of {want.n_blocks}), "
@@ -2473,7 +2570,7 @@ def phase_faults() -> None:
     cheetah's and lion's also on the device route; the seven adversarial
     FSM inputs encode to `native.encode`'s bytes with each codec under
     both sort options, and the golden vectors both ways. Every one of
-    the six kernels must launch in it."""
+    the seven kernels must launch in it."""
     here = os.path.dirname(os.path.abspath(__file__))
     p = subprocess.Popen([sys.executable, "-c", FAULT_WORKER], cwd=here,
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -2546,6 +2643,8 @@ def main() -> int:
             errs[k] = max(errs[k], e)
     mtf_ops = mtf_shapes(dev, data, paths["lion"][0], large_quads)
     errs["mtf"] = parity_mtf(mtf_ops)
+    fsm_ops = fsm_shapes(dev, data, paths)
+    errs["fsm"] = parity_fsm(fsm_ops)
     main_counts, main_blob = phase_main_path(dev, data)
     phase_incompressible(dev, rnd)
     small_counts, small_blobs = phase_small_streams(dev, data)
@@ -2590,10 +2689,12 @@ def main() -> int:
     counts["pack"] = small_counts["pack"]
     counts["bitonic"] = opt_counts["bitonic"]
     counts["mtf"] = lion_counts["mtf"]
+    counts["fsm"] = lion_counts["fsm"]
     log(f"(e) launches: bigsort/packroute/unpack on the main path (c), "
         f"pack on the small-stream paths (g), bitonic under "
         f"DENSITY_TPU_SORT=bitonic (h), mtf on lion's main path (p), one "
-        f"a plan: {counts}; on cheetah's main path "
+        f"a plan, fsm on lion's main path (p), one a pass of the fixed "
+        f"point: {counts}; on cheetah's main path "
         f"(k): {cheetah_counts}; on lion's main path (p): {lion_counts}, "
         f"its 16 KiB path (r): {lion_small_counts}")
     if min(counts.values()) < 1:
@@ -2603,6 +2704,7 @@ def main() -> int:
     time_sort_3(dev, paths["cheetah"][0], large_quads)
     time_lion_packs(*paths["lion"])
     rows["mtf"] = time_mtf(mtf_ops)
+    rows["fsm"] = time_fsm(fsm_ops)
     for codec, blob in (("cheetah", cheetah_blob), ("lion", lion_blob)):
         conv_data, _, conv_dargs = conv[codec]
         time_codec(dev, codec, paths[codec][0], conv_dargs, conv_data, data,

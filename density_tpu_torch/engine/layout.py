@@ -7,9 +7,10 @@ Counterpart of the JAX package's `engine/layout.py`, for any codec's
     the stream totals and the no-copy certificate in one pass
     (`fused_pallas_batched`);
   * `run_encode`: that pass, and when a stream's certificate fails, the
-    host-driven fixed point over the copy-block set with the masked
-    plan and the masked (with-copy) assembly (`run_encode`,
-    `assemble_one`).
+    fixed point over the copy-block set with the masked plan, the
+    protection FSM's step (`kernels/fsm.py`; the copy set stays on the
+    device, and a pass reads back two flags) and the masked (with-copy)
+    assembly (`run_encode`, `assemble_one`).
 
 Quads are (S, n_q) int32 bit patterns of the little-endian input;
 n_q is a power of two >= 4096 (`stage_quads` pads to it), so every
@@ -35,9 +36,8 @@ import numpy as np
 import torch
 
 from density_tpu_torch.engine.grouping import hash_quads
-from density_tpu_torch.engine.protection import replay_fsm
 from density_tpu_torch.hostsync import masked, read, to_card
-from density_tpu_torch.kernels import pack, packroute
+from density_tpu_torch.kernels import fsm, pack, packroute
 from density_tpu_torch.tracing import traced
 
 # Plans of the fixed point over the copy-block set before the batch goes
@@ -136,12 +136,15 @@ def plan_masked(pipe: Pipeline, quads, nbytes, copy):
 
 
 @traced("engine.fsm")
-def step_fsm(bits, nbytes, BLOCK):
-    """Copy decisions of the protection FSM (host), real blocks only."""
-    bits_np = read(bits)
-    nbr = (read(nbytes).astype(np.int64) + BLOCK - 1) // BLOCK
-    nb = bits_np.shape[1]
-    return replay_fsm(bits_np) & (np.arange(nb)[None, :] < nbr[:, None])
+def step_fsm(bits, nbytes, BLOCK, copy):
+    """One pass of the fixed point: the protection FSM's copy decisions
+    under the plan's incompressible bits, real blocks only, on the
+    tensors' device (`kernels/fsm.py::step`), and one read of whether
+    they differ from `copy` and whether any block is a copy. Returns
+    (new copy set, changed, any)."""
+    new_copy, flags = fsm.step(bits, nbytes, BLOCK, copy)
+    changed, any_copy = read(flags)
+    return new_copy, bool(changed), bool(any_copy)
 
 
 @traced("engine.assemble")
@@ -214,9 +217,9 @@ def assemble_masked(pipe: Pipeline, quads, nbytes, copy, flags, pw, w0, w1,
 @traced("engine.encode")
 def run_encode(pipe: Pipeline, quads, nbytes):
     """Encode (S, n_q) staged quads. The fused copy-free pass is the
-    whole job when every stream's certificate holds; otherwise the
-    host-driven fixed point over the copy-block set decides the copies.
-    Returns (out_words, totals, converged)."""
+    whole job when every stream's certificate holds; otherwise the fixed
+    point over the copy-block set decides the copies, the set kept on
+    the quads' device. Returns (out_words, totals, converged)."""
     out, totals, ok, plan = fused(pipe, quads, nbytes)
     ok = read(ok)
     if ok.all():
@@ -226,22 +229,22 @@ def run_encode(pipe: Pipeline, quads, nbytes):
     fail = to_card(np.flatnonzero(~ok), quads.device)
     quads, nbytes = quads[fail], nbytes[fail]
     flags, pw, w0, w1, valid, bits = (x[fail] for x in plan)
-    copy = np.zeros((len(fail), quads.shape[1] // pipe.Q), bool)
+    copy = torch.zeros_like(bits)
     converged = False
     for it in range(MAX_FIXED_POINT_ITERS):
         if it > 0:
             flags, pw, w0, w1, valid, bits = plan_masked(
-                pipe, quads, nbytes, to_card(copy, quads.device))
-        new_copy = step_fsm(bits, nbytes, pipe.BLOCK)
-        if np.array_equal(new_copy, copy):
+                pipe, quads, nbytes, copy)
+        new_copy, changed, any_copy = step_fsm(bits, nbytes, pipe.BLOCK,
+                                               copy)
+        if not changed:
             converged = True
             break
         copy = new_copy
-    if converged and not copy.any():
+    if converged and not any_copy:
         return out, totals, True  # the copy-free pass was already right
     sub_out, sub_totals = assemble_masked(
-        pipe, quads, nbytes, to_card(copy, quads.device), flags, pw, w0, w1,
-        valid)
+        pipe, quads, nbytes, copy, flags, pw, w0, w1, valid)
     out[fail] = sub_out
     totals[fail] = sub_totals
     return out, totals, converged

@@ -13,11 +13,9 @@ encoder and decoder replay it in lockstep with no metadata.
   - otherwise the block is encoded and update(incompressible) runs:
     two consecutive incompressible blocks arm copy_penalty.
 
-It runs only for the streams whose no-copy certificate failed in the
-fused encode, so it stays on the host: a scalar loop over each stream's
-blocks (a few streams of 1024 blocks take well under a millisecond each,
-where a loop over blocks vectorised across streams pays ten numpy calls
-per block).
+This is the plain version of the FSM step (`kernels/fsm.py::step_plain`,
+the CPU path, and the reference the card's kernel `csrc/fsm.cu` is held
+to): a scalar loop over each stream's blocks.
 """
 
 from __future__ import annotations

@@ -24,7 +24,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-KERNELS = ("bigsort", "packroute", "unpack", "pack", "bitonic", "mtf")
+KERNELS = ("bigsort", "packroute", "unpack", "pack", "bitonic", "mtf",
+           "fsm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -5,8 +5,8 @@ The reference reports nothing beyond a bench's ratio print (reference:
 benches/density.rs:26). `stream_stats` walks a compressed stream on the
 host; `encode_stats` runs the device planner and reduces the flag
 histogram and the payload bytes on the device, so that only a few
-scalars cross to the host (the copy-block set is the host FSM's, as in
-`layout.run_encode`).
+scalars and the copy-block set cross to the host (the set is decided by
+`layout.step_fsm` on the device, as in `layout.run_encode`).
 """
 
 from __future__ import annotations
@@ -105,15 +105,17 @@ def encode_stats(codec: str, data: bytes, device=None) -> StreamStats:
     quads = layout.stage_quads(padded, dev)
     nbytes = torch.tensor([n], dtype=torch.int32, device=dev)
 
-    copy = np.zeros((1, quads.shape[1] // pipe.Q), bool)
+    copy = torch.zeros((1, quads.shape[1] // pipe.Q), dtype=torch.bool,
+                       device=dev)
     for it in range(layout.MAX_FIXED_POINT_ITERS):
         if it == 0:
             flags, pw, _, _, valid, bits = pipe.plan_fast(quads, nbytes)
         else:
             flags, pw, _, _, valid, bits = layout.plan_masked(
-                pipe, quads, nbytes, torch.from_numpy(copy).to(dev))
-        new_copy = layout.step_fsm(bits, nbytes, pipe.BLOCK)
-        if np.array_equal(new_copy, copy):
+                pipe, quads, nbytes, copy)
+        new_copy, changed, _ = layout.step_fsm(bits, nbytes, pipe.BLOCK,
+                                               copy)
+        if not changed:
             break
         copy = new_copy
     else:
@@ -121,12 +123,12 @@ def encode_stats(codec: str, data: bytes, device=None) -> StreamStats:
 
     # the plan in hand was made under `copy`: reduce it on the device
     n_flags = 1 << spec.flag_bits
-    copy_q = torch.from_numpy(np.repeat(copy, pipe.Q, axis=1)).to(dev)
-    live = (valid & ~copy_q).reshape(-1)
+    live = (valid & ~copy.repeat_interleave(pipe.Q, dim=1)).reshape(-1)
     hist = torch.zeros(n_flags, dtype=torch.int64, device=dev).scatter_add_(
         0, torch.where(live, flags.reshape(-1), 0).long(), live.long())
     pay_bytes = 2 * torch.where(live, pw.reshape(-1), 0).long().sum()
     host = torch.cat([hist, pay_bytes[None]]).cpu().numpy()
+    copy = copy.cpu().numpy()
 
     n_blocks = -(-n // spec.block_size)
     copies = np.flatnonzero(copy[0])

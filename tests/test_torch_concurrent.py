@@ -36,7 +36,7 @@ from density_tpu_torch import hostsync
 from density_tpu_torch import native as pnative
 from density_tpu_torch.errors import DecodeError, EncodeError
 from density_tpu_torch.kernels import (
-    _build, bigsort, bitonic, mtf, pack, packroute, unpack)
+    _build, bigsort, bitonic, fsm, mtf, pack, packroute, unpack)
 from density_tpu_torch.native import build as native_build
 from density_tpu_torch.parallel import mesh, sharding
 from tests.test_torch_cheetah import _alphabet, _mixed, _text
@@ -388,7 +388,7 @@ def test_packroute_epochs_never_repeat(monkeypatch):
 
 
 @pytest.mark.parametrize("module", [bigsort, packroute, unpack, pack,
-                                    bitonic, mtf])
+                                    bitonic, mtf, fsm])
 def test_launch_counts_are_exact_under_threads(monkeypatch, module):
     monkeypatch.setattr(module, "launches", 0)
     _stress(lambda t, c: _build.count_launch(vars(module)))

@@ -927,3 +927,209 @@ def test_mtf_rejects_what_it_does_not_take(cuda):
     assert mtf.launches == before
     empty = mtf.depths(first[:0], vals[:0], valid[:0], 5)
     assert empty.shape == (0, 8192) and mtf.launches == before
+
+
+# ------------------------------------------- protection FSM step (fsm.cu)
+
+FSM_KINDS = ["sparse", "half", "dense", "ones", "zeros", "alternating",
+             "runs"]
+# (S, nb, block): lion's, cheetah's and chameleon's bulk batches, lion's
+# tail, the objects cell's record, and a batch of more streams than the
+# kernel's 32 warps
+FSM_SHAPES = [(38, 4096, 64), (38, 2048, 128), (38, 1024, 256),
+              (1, 4096, 64), (1, 512, 256), (40, 1024, 128)]
+
+
+def _fsm_inputs(kind, S, nb, block, seed):
+    """(bits, nbytes) of one kind on the CPU: seeded random bits at three
+    densities, all ones, all zeros, alternating, or runs of ones 2-60
+    blocks long (they arm penalties that raise copy_penalty_start above
+    2 and span the 16-tick halvings) between runs of zeros. nbytes is
+    ragged: stream 0 ends 37 bytes into its last block, the last stream
+    of several is full, the others end anywhere."""
+    rng = np.random.default_rng(seed)
+    if kind in ("sparse", "half", "dense"):
+        p = {"sparse": 0.1, "half": 0.5, "dense": 0.9}[kind]
+        bits = rng.random((S, nb)) < p
+    elif kind == "ones":
+        bits = np.ones((S, nb), bool)
+    elif kind == "zeros":
+        bits = np.zeros((S, nb), bool)
+    elif kind == "alternating":
+        bits = np.broadcast_to(np.arange(nb) % 2 == 0, (S, nb)).copy()
+    else:
+        bits = np.zeros((S, nb), bool)
+        for s in range(S):
+            at = int(rng.integers(0, 8))
+            while at < nb:
+                n = int(rng.integers(2, 61))
+                bits[s, at:at + n] = True
+                at += n + int(rng.integers(1, 40))
+    nbytes = rng.integers(1, nb * block + 1, S)
+    nbytes[0] = (nb - 3) * block + 37
+    if S > 1:
+        nbytes[-1] = nb * block
+    return (torch.from_numpy(bits),
+            torch.from_numpy(nbytes.astype(np.int32)))
+
+
+def _stdlib_text(n: int) -> bytes:
+    """Python source text of this machine's stdlib, in sorted order."""
+    import os
+    root = os.path.dirname(os.__file__)
+    parts, size = [], 0
+    for name in sorted(os.listdir(root)):
+        if name.endswith(".py"):
+            with open(os.path.join(root, name), "rb") as f:
+                parts.append(f.read())
+            size += len(parts[-1])
+            if size >= n:
+                break
+    return b"".join(parts)[:n]
+
+
+def _multipass(seed=5):
+    """Random bytes, then text: a stream whose copy-block fixed point
+    takes three or more passes in each codec."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, 4096, dtype=np.uint8).tobytes()
+            + _stdlib_text(12288))
+
+
+def _encode_counted(codec, data, dev):
+    """`layout.run_encode` of `data` as one stream on `dev`: (out, totals,
+    converged) on the host and the passes of its fixed point."""
+    from density_tpu_torch.engine import layout
+    from density_tpu_torch.parallel import sharding
+    pipe = sharding.codec_module(codec).PIPELINE
+    n = len(data)
+    padded = np.zeros((1, layout.bucket_bytes(n, pipe.BLOCK)), np.uint8)
+    padded[0, :n] = np.frombuffer(data, np.uint8)
+    passes = []
+    step = layout.step_fsm
+    layout.step_fsm = lambda *a: passes.append(1) or step(*a)
+    try:
+        out, totals, converged = layout.run_encode(
+            pipe, layout.stage_quads(padded, dev),
+            torch.tensor([n], dtype=torch.int32, device=dev))
+    finally:
+        layout.step_fsm = step
+    return (out.cpu(), totals.cpu(), converged), len(passes)
+
+
+@pytest.mark.parametrize("kind", FSM_KINDS)
+@pytest.mark.parametrize("S,nb,block", FSM_SHAPES)
+def test_fsm_matches_plain(cuda, S, nb, block, kind):
+    """The kernel equals the plain replay bit for bit, in the copy set and
+    in both flags, against a copy set of zeros, against the plain result
+    (nothing changed) and against it with one real block flipped; blocks
+    past ceil(nbytes / block) come out 0."""
+    from density_tpu_torch.kernels import fsm
+    bits, nbytes = _fsm_inputs(kind, S, nb, block, S * nb + len(kind))
+    zeros = torch.zeros_like(bits)
+    want, want_flags = fsm.step_plain(bits, nbytes, block, zeros)
+    flipped = want.clone()
+    flipped[0, 0] = ~flipped[0, 0]
+    for prev in (zeros, want, flipped):
+        got, flags = fsm.step(bits.to(cuda), nbytes.to(cuda), block,
+                              prev.to(cuda))
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bool and torch.equal(got.cpu(), want)
+        changed = not torch.equal(prev, want)
+        assert flags.cpu().tolist() == [int(changed), int(want.any())]
+    assert want_flags.tolist() == [int(bool(want.any())), int(want.any())]
+    real = torch.arange(nb) < ((nbytes.long() + block - 1) // block)[:, None]
+    assert not bool((want & ~real).any())
+
+
+# Three profiler sessions of three steps and a small kernel after them,
+# in a process of its own: late in a long process the profiler drops
+# device events (seen on the H100), and a fresh one records them all.
+FSM_TRACE = """
+import json
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from density_tpu_torch.kernels import fsm
+rng = np.random.default_rng(7)
+bits = torch.from_numpy(rng.random((38, 4096)) < 0.5).cuda()
+nbytes = torch.full((38,), 4096 * 64, dtype=torch.int32, device="cuda")
+prev = torch.zeros_like(bits)
+fsm.step(bits, nbytes, 64, prev)
+tail = torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+counts = []
+for _ in range(3):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fsm.step(bits, nbytes, 64, prev)
+        tail.add_(1)
+        torch.cuda.synchronize()
+    work = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    steps = sum(e.count for e in work if "fsm_kernel" in e.key)
+    counts.append([steps, sum(e.count for e in work) - steps])
+print(json.dumps(counts))
+"""
+
+
+def test_fsm_one_launch_a_pass(cuda):
+    """A step is one launch of the wrapper's count and makes no host sync;
+    in the profiler's trace it is one kernel event, and no other kernel,
+    copy or memset runs (three steps and the small kernel after them are
+    four device events; a session may drop events but never adds one)."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+    from density_tpu_torch.kernels import fsm
+    bits, nbytes = (x.to(cuda) for x in _fsm_inputs("half", 38, 4096, 64, 7))
+    prev = torch.zeros_like(bits)
+    before = fsm.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fsm.step(bits, nbytes, 64, prev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fsm.launches == before + 1
+    out = subprocess.run([sys.executable, "-c", FSM_TRACE], check=True,
+                         cwd=pathlib.Path(__file__).resolve().parent.parent,
+                         capture_output=True, text=True, timeout=300)
+    counts = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [3, 1] in counts, counts
+    assert all(s <= 3 and o <= 1 for s, o in counts), counts
+
+
+@pytest.mark.parametrize("codec", ["chameleon", "cheetah", "lion"])
+def test_run_encode_on_card_equals_cpu(cuda, codec):
+    """`run_encode`'s (out, totals, converged) on the card equal the CPU
+    path's on a stream of three or more passes, one FSM launch a pass."""
+    from density_tpu_torch.kernels import fsm
+    data = _multipass()
+    want, cpu_passes = _encode_counted(codec, data, "cpu")
+    before = fsm.launches
+    got, passes = _encode_counted(codec, data, cuda)
+    assert passes == cpu_passes >= 3
+    assert fsm.launches == before + passes
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[2] is want[2] is True
+
+
+def test_fsm_rejects_what_it_does_not_take(cuda):
+    """On the card the wrapper raises on what the kernel does not take,
+    and never falls back to the plain replay."""
+    from density_tpu_torch.kernels import fsm
+    bits, nbytes = (x.to(cuda) for x in _fsm_inputs("half", 4, 1024, 64, 8))
+    prev = torch.zeros_like(bits)
+    wide = torch.zeros((4, 1024 + 16), dtype=torch.bool, device=cuda)
+    before = fsm.launches
+    for args in ((bits[:, :1000].contiguous(), nbytes, 64,
+                  prev[:, :1000].contiguous()),
+                 (wide.view(-1)[1:1 + 4 * 1024].view(4, 1024), nbytes, 64,
+                  prev),
+                 (bits, nbytes.long(), 64, prev),
+                 (bits, nbytes, 64, prev.cpu()),
+                 (bits, nbytes, 0, prev)):
+        with pytest.raises(ValueError):
+            fsm.step(*args)
+    assert fsm.launches == before
