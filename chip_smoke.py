@@ -1261,12 +1261,12 @@ def planner_sort_inputs(quads):
     index, fingerprint: 3 arrays, 2 keys), as cheetah's and lion's
     `plan_fast` build them."""
     import torch
-    from density_tpu_torch.codecs import cheetah
-    from density_tpu_torch.engine.grouping import hash_quads, shift_right
+    from density_tpu_torch.engine.grouping import (
+        hash_quads, shift_right, sig32)
     S, N = quads.shape
     lidx = torch.arange(N, dtype=torch.int32, device=quads.device)
     return (shift_right(hash_quads(quads), 0).contiguous(),
-            lidx.expand(S, N).contiguous(), cheetah.sig32(quads))
+            lidx.expand(S, N).contiguous(), sig32(quads))
 
 
 def parity_codec(dev, codec, big_in, small_in, large_quads):
@@ -1276,8 +1276,8 @@ def parity_codec(dev, codec, big_in, small_in, large_quads):
     and the plans at the codec's geometry (256 KiB: packroute, 16 KiB:
     pack). Returns the largest error of each."""
     import torch
-    from density_tpu_torch.codecs import cheetah
-    from density_tpu_torch.engine.grouping import hash_quads, shift_right
+    from density_tpu_torch.engine.grouping import (
+        hash_quads, shift_right, sig32)
     from density_tpu_torch.kernels import bigsort, bitonic, pack, packroute
     errs = {}
     res = resolve_sort_inputs(big_in["dargs"], codec)
@@ -1288,7 +1288,7 @@ def parity_codec(dev, codec, big_in, small_in, large_quads):
     # the planner's first packed sort at N <= 65536: biased (context <<
     # 16 | index) and the fingerprint
     fwd = (((shift_right(hash_quads(q), 0) << 16) | lidx) ^ (-2**31),
-           cheetah.sig32(q))
+           sig32(q))
     sorts = [(res, 2), ((res[2], res[1]), 1), (big, 2), (fwd, 1),
              ((res[1],), 1)]
     for name, mod in (("bigsort", bigsort), ("bitonic", bitonic)):

@@ -15,22 +15,19 @@ to stream order.
 
 from __future__ import annotations
 
-import os
-
 import torch
 
+from density_tpu_torch.constants import BIAS
 from density_tpu_torch.constants import CHAMELEON as SPEC
-from density_tpu_torch.constants import HASH_MULTIPLIER_I32
 from density_tpu_torch.engine import layout
 from density_tpu_torch.engine.grouping import (
-    hash_quads, prev_valid_value_in_group, shift_right)
-from density_tpu_torch.kernels import bigsort, bitonic
+    hash_quads, prev_valid_value_in_group, quad_cmp16, shift_right,
+    sort_module)
 from density_tpu_torch.kernels.packroute import signature_words
 
 Q = SPEC.quads_per_block  # 64
 SIG_WORDS = SPEC.sig_words  # 4
 BLOCK = SPEC.block_size  # 256
-BIAS = -2**31  # signed order of k ^ BIAS == unsigned order of k
 
 
 def classify(quads, hashes, real, copy_blocks):
@@ -52,27 +49,18 @@ def sig_pack(flags_2d):
     return signature_words(flags_2d, Q, SIG_WORDS, 1).squeeze(-2)
 
 
-def _sort_mod():
-    """The planner's sort kernel: `bitonic` under
-    DENSITY_TPU_SORT=bitonic, `bigsort` otherwise. Read on every call,
-    as the JAX package reads it at trace time (`_sort_mod`)."""
-    return (bitonic if os.environ.get("DENSITY_TPU_SORT") == "bitonic"
-            else bigsort)
-
-
 def plan_fast(quads: torch.Tensor, nbytes: torch.Tensor):
     """Copy-free planner for (S, n_q) int32 quads, n_q a power of two:
     the port of `plan_fast_pallas`. Two sorts on the sort kernel of
-    `_sort_mod`: forward by (hash, index), back by (index << 1 | map
+    `sort_module`: forward by (hash, index), back by (index << 1 | map
     bit).
 
     n_q <= 2**16: (hash << 16 | index) is one biased key, the quad rides
     along. Above: 2 keys, (hash, index high bits) and (index low 16 bits,
-    cmp16), where cmp16 -- the low product bits (their LSB is always 0,
-    the multiplier being even) with the quad's top bit -- pins the quad
-    exactly given its hash. Returns (flags, pw, w0, w1, real, bits).
+    cmp16), where cmp16 (`grouping.cmp16`) pins the quad exactly given
+    its hash. Returns (flags, pw, w0, w1, real, bits).
     """
-    sort = _sort_mod().sort
+    sort = sort_module().sort
     S, n_q = quads.shape
     dev = quads.device
     quads = quads.to(torch.int32)
@@ -90,11 +78,9 @@ def plan_fast(quads: torch.Tensor, nbytes: torch.Tensor):
         is_map_s = torch.where(same, q_s == prev_q, q_s == 0)
     else:
         seg_bits = (n_q - 1).bit_length() - 16
-        prod = quads * HASH_MULTIPLIER_I32
-        cmp16 = (((prod & 0xFFFF) >> 1)
-                 | (((quads >> 31) & 1) << 15))
+        c16 = quad_cmp16(quads)
         p = (h << seg_bits) | (lidx >> 16)
-        k2 = (((lidx & 0xFFFF) << 16) | cmp16) ^ BIAS
+        k2 = (((lidx & 0xFFFF) << 16) | c16) ^ BIAS
         p_s, k2_s = sort(p, k2, n_keys=2)
         u = k2_s ^ BIAS
         cmp_s = u & 0xFFFF

@@ -18,33 +18,33 @@ each hash group. Every stream is padded to a power of two of at least
 kernel: the JAX package's XLA planner for other lengths
 (`classify_fast`) has no counterpart here.
 
-Decode: the dictionary chain is flag-driven, one segmented scan; the
-predicted values come from a context fixpoint over the 5-slot queues
-(`grouping.seg_selq_before`), iterated from the host until no stream
-changes (`max_rounds` caps it; a stream still changing is redone on the
-host by the caller).
+Decode is `unlayout`'s, shared with cheetah
+(`unlayout.resolve_predicted`): the dictionary chain is flag-driven, one
+segmented scan; the predicted values come from a context fixpoint whose
+round (`_round`) scans the 5-slot queues (`grouping.seg_selq_before`),
+iterated from the host until no stream changes (`max_rounds` caps it; a
+stream still changing is redone on the host by the caller).
 
 Quads are int32 bit patterns; every right shift is masked.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
-from density_tpu_torch.codecs.chameleon import BIAS, _sort_mod
-from density_tpu_torch.codecs.cheetah import MAX_ROUNDS, _contexts, sig32
+from density_tpu_torch.constants import BIAS
 from density_tpu_torch.constants import LION as SPEC
 from density_tpu_torch.constants import (
     LION_MAP_A_FLAG, LION_MAP_B_FLAG, LION_PREDICTED_A_FLAG, OP_ID, OP_INS,
     OP_SWAP, PLAIN_FLAG)
 from density_tpu_torch.engine import layout, unlayout
 from density_tpu_torch.engine.grouping import (
-    ctx_fill, hash_quads, mru2_state_in_group, seg_mtf2_before,
-    seg_mtf2_before_packed, seg_sel2_before, seg_selq_before, shift_right)
+    contexts, hash_quads, mru2_state_in_group, seg_mtf2_before,
+    seg_mtf2_before_packed, seg_selq_before, shift_right, sig32, sort_module)
 from density_tpu_torch.engine.mtf import mtf_depths_in_group, mtf_depths_sorted
-from density_tpu_torch.hostsync import read
 from density_tpu_torch.kernels.packroute import signature_words
-from density_tpu_torch.tracing import span
 
 Q = SPEC.quads_per_block  # 16
 SIG_WORDS = SPEC.sig_words  # 3
@@ -78,7 +78,7 @@ def classify(quads, hashes, real, copy_blocks):
     copy blocks neither emit tokens nor touch codec state. Returns
     (flags, pw, w0, w1, valid)."""
     valid = real & ~unlayout.per_quad(copy_blocks, Q)
-    ctx = _contexts(hashes, valid)
+    ctx = contexts(hashes, valid)
     depth = mtf_depths_in_group(ctx, quads, valid, K)  # K: a miss
     dict_valid = valid & (depth >= K)
     front, second = mru2_state_in_group(hashes, quads, dict_valid)
@@ -106,7 +106,7 @@ def sig_unpack(sig_w):
 def plan_fast(quads: torch.Tensor, nbytes: torch.Tensor):
     """Copy-free planner for (S, n_q) int32 quads, n_q a power of two:
     the port of `plan_fast_pallas`. Three sorts on the kernel of
-    `_sort_mod`: by (context, index) carrying the fingerprint, then the
+    `sort_module`: by (context, index) carrying the fingerprint, then the
     MTF-5 scan of the prediction queue; by (hash, index) carrying the
     dictionary's payload, then its MTF-2 scan; and back by index.
 
@@ -114,7 +114,7 @@ def plan_fast(quads: torch.Tensor, nbytes: torch.Tensor):
     biased key and carries one array (the second a 21-bit payload of
     fingerprint, act bit and depth). Above: 2-key 3-array sorts, as the
     JAX package makes them. Returns (flags, pw, w0, w1, real, bits)."""
-    sort = _sort_mod().sort
+    sort = sort_module().sort
     S, n_q = quads.shape
     dev = quads.device
     quads = quads.to(torch.int32)
@@ -195,107 +195,35 @@ def decode(data: bytes, device=None) -> bytes:
 
 
 # ---------------------------------------------------------------------------
-# Decode: tokens by gathers, values by a scan and a context fixpoint
+# Decode: `unlayout`'s, bound to lion's flags, signature and round
 # ---------------------------------------------------------------------------
 
-def extract_tokens(words, woff, is_copy, nb_real, out_len):
-    """Per-quad (flags, w0, w1, valid) of staged streams (`_extract_tokens`
-    over a batch): words (S, W) u16 values in int32, woff (S, NB) block
-    word offsets, is_copy (S, NB), nb_real and out_len (S,). Tensor
-    gathers, as the JAX package extracts lion tokens (no unpack
-    kernel)."""
-    return unlayout.gather_tokens(words, woff, is_copy, nb_real, out_len,
-                                  SPEC, sig_unpack, FLAG_PRED_A)
-
-
-def resolve(flags, w0, w1, valid, max_rounds: int = MAX_ROUNDS):
-    """Batched value resolution (`_resolve_parallel_batched`), every sort
-    on the kernel of `_sort_mod`. (S, N) tensors, N a power of two.
-
-    The dictionary chain never involves predicted tokens, and every
-    other token's hash group is on the wire, so plain/mapA/mapB values
-    resolve in one segmented scan of flag-driven ops. Given the contexts
-    (ctx_i = the hash of token i-1: the wire's for a map token, as the
-    reference keeps it, whatever quad its slot holds; the quad's for the
-    others), the queue ops are flag-driven too (a
-    non-predicted quad shift-inserts its known value, a predicted one at
-    depth d promotes slot d and reads it), so the predicted values come
-    from one segmented scan of the 5-slot selection maps; contexts are
-    unknown only after predicted tokens, so that pass iterates to its
-    fixpoint, which is the unique solution. Each round after the first
-    reads, on the host, whether any stream changed (one host sync a
-    round).
-
-    Returns (quads, ok, rounds): ok[s] is False where stream s still
-    changed in the last of `rounds` rounds (it hit `max_rounds`)."""
-    sort = _sort_mod().sort
-    S, n_q = flags.shape
-    dev = flags.device
-    lidx = torch.arange(n_q, dtype=torch.int32, device=dev)[None, :].expand(
-        S, n_q)
-    plain_quad = w0 | (w1 << 16)
-    is_pred = (flags >= FLAG_PRED_A) & (flags < FLAG_PRED_A + K) & valid
-    nonpred = valid & ~is_pred
-    is_plain = (flags == FLAG_PLAIN) & valid
-
-    # dictionary chain: exact, one pass
-    key = torch.where(nonpred, torch.where(is_plain, hash_quads(plain_quad),
-                                           w0), 1 << 16)
-    op = torch.where(is_plain, OP_INS, torch.where(
-        (flags == FLAG_MAP_B) & valid, OP_SWAP, OP_ID))
-    op = torch.where(nonpred, op, OP_ID).to(torch.int32)
-    k_s, k2_s, cv_s = sort(key, (lidx << 5) | (op << 3) | flags, plain_quad,
-                           n_keys=2)
-    a_b, b_b = seg_sel2_before(k_s != shift_right(k_s, -1), (k2_s >> 3) & 3,
-                               cv_s)
-    fl_s = k2_s & 7
-    val_s = torch.where(fl_s == FLAG_MAP_A, a_b,
-                        torch.where(fl_s == FLAG_MAP_B, b_b, cv_s))
-    _, dv = sort(k2_s >> 5, val_s, n_keys=1)
-    quads = torch.where(nonpred, dv, 0)
-
-    # context fixpoint over the 5-slot queues
+def _round_tag(flags, nonpred, is_pred):
+    """The context sort's tag of a position: its queue op (kind << 3) and
+    the depth it reads (depth). A non-predicted quad shift-inserts its
+    known value, a predicted one at depth d promotes slot d and reads
+    it."""
     kind = torch.where(nonpred, OP_INS, torch.where(is_pred, OP_SWAP, OP_ID))
-    depth = torch.clamp(flags - FLAG_PRED_A, 0, K - 1)
-    ck2 = ((lidx << 5) | (kind << 3) | depth).to(torch.int32)
-    changed = torch.ones(S, dtype=torch.bool, device=dev)
-    rounds = 0
-    while rounds < max_rounds and (rounds == 0 or bool(read(changed.any()))):
-        with span("engine.resolve_round"):
-            ctx = ctx_fill(torch.where(nonpred, key, hash_quads(quads)),
-                           valid)
-            ck_s, ck2_s, q_s = sort(torch.where(valid, ctx, 1 << 16), ck2,
-                                    quads, n_keys=2)
-            kind_s = (ck2_s >> 3) & 3
-            d_s = ck2_s & 7
-            before = seg_selq_before(ck_s != shift_right(ck_s, -1), kind_s,
-                                     torch.where(kind_s == OP_INS, 0, d_s),
-                                     q_s, K)
-            read_s = torch.gather(before, -1, d_s.long()[..., None])[..., 0]
-            _, pv = sort(ck2_s >> 5, read_s, n_keys=1)
-            new = torch.where(is_pred, pv, quads)
-            changed = torch.any((new != quads) & is_pred, dim=1)
-            quads = new
-            rounds += 1
-    # a stream unchanged in the last round is at its own fixpoint (its
-    # update reads only its own positions), hence exactly decoded
-    return quads, ~changed, rounds
+    return (kind << 3) | torch.clamp(flags - FLAG_PRED_A, 0, K - 1)
 
 
-def assemble(quads, valid, words, woff, is_copy, nb_real, out_len):
-    """(S, NB * 32) output halfwords (`_assemble`): the resolved quads'
-    halves where valid, a copy block's raw words over its own span."""
-    return unlayout.assemble_quads(quads, valid, words, woff, is_copy,
-                                   nb_real, out_len, BLOCK)
+def _round(first, tags_s, quads_s):
+    """A predicted token reads its depth of the 5-slot queue of its
+    context group: one segmented scan of the queues' selection maps."""
+    kind_s = (tags_s >> 3) & 3
+    d_s = tags_s & 7
+    before = seg_selq_before(first, kind_s,
+                             torch.where(kind_s == OP_INS, 0, d_s), quads_s, K)
+    return torch.gather(before, -1, d_s.long()[..., None])[..., 0]
 
 
-def decode_batch(words, woff, is_copy, nb_real, out_len,
-                 max_rounds: int = MAX_ROUNDS):
-    """Device decode of staged streams: (S, NB * 32) int32 halfwords, the
-    (S,) converged flags and the fixpoint's rounds. NB * 16 must be a
-    power of two."""
-    flags, w0, w1, valid = extract_tokens(words, woff, is_copy, nb_real,
-                                          out_len)
-    quads, ok, rounds = resolve(flags, w0, w1, valid, max_rounds)
-    return assemble(quads, valid, words, woff, is_copy, nb_real,
-                    out_len), ok, rounds
+extract_tokens = partial(unlayout.gather_tokens, spec=SPEC,
+                         sig_unpack=sig_unpack, no_payload_flag=FLAG_PRED_A)
+resolve = partial(unlayout.resolve_predicted, spec=SPEC,
+                  map_flags=(FLAG_MAP_A, FLAG_MAP_B),
+                  predicted=lambda flags: ((flags >= FLAG_PRED_A)
+                                           & (flags < FLAG_PRED_A + K)),
+                  round_tag=_round_tag, tag_bits=5, round_body=_round)
+assemble = partial(unlayout.assemble_quads, block=BLOCK)
+decode_batch = partial(unlayout.decode_predicted_batch,
+                       extract=extract_tokens, resolve=resolve, block=BLOCK)

@@ -3,7 +3,8 @@
 These pin the wire format and must match the reference bit for bit;
 they mirror the JAX package's `constants.py`: the block geometry of all
 three codecs (`SPECS`, which `api.safe_encode_buffer_size` reads), their
-flags, and the decode-side dictionary ops of the grouping scans.
+flags, the decode-side dictionary ops of the grouping scans and the
+sort keys' bias.
 
 Hash: h = (quad *u32 0x9D6EF916) >> 16, a u16.
 All multi-byte values are little-endian. Signature flags are packed
@@ -42,6 +43,9 @@ LION_MAP_B_FLAG = 0x7
 # decode-side dictionary ops (`grouping.seg_sel2_before`): keep, swap
 # the two slots, insert a constant
 OP_ID, OP_SWAP, OP_INS = 0, 1, 2
+
+# sort keys: the signed order of k ^ BIAS is the unsigned order of k
+BIAS = -2**31
 
 
 @dataclasses.dataclass(frozen=True)

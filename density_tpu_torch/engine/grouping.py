@@ -13,16 +13,57 @@ axes (the streams).
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from density_tpu_torch.constants import (
     HASH_BITS, HASH_MULTIPLIER_I32, OP_INS, OP_SWAP)
+from density_tpu_torch.kernels import bigsort, bitonic
+
+
+def sort_module():
+    """The sort kernel of the planners and of cheetah's and lion's
+    resolve: `bitonic` under DENSITY_TPU_SORT=bitonic, `bigsort`
+    otherwise. Read on every call, as the JAX package reads it at trace
+    time (`_sort_mod`)."""
+    return (bitonic if os.environ.get("DENSITY_TPU_SORT") == "bitonic"
+            else bigsort)
 
 
 def hash_quads(quads: torch.Tensor) -> torch.Tensor:
     """h = (quad * 0x9D6EF916) >> 16 as int32 in [0, 65536)."""
     prod = quads.to(torch.int32) * HASH_MULTIPLIER_I32
     return (prod >> (32 - HASH_BITS)) & ((1 << HASH_BITS) - 1)
+
+
+def cmp16(prod, quads):
+    """16-bit exact quad fingerprint given the hash, from the product
+    `prod` = quads * the multiplier: the low product bits (their LSB is
+    always 0 -- the multiplier is even) plus the quad's top bit.
+    (hash, cmp16) <-> quad is a bijection."""
+    return ((prod & 0xFFFF) >> 1) | (((quads >> 31) & 1) << 15)
+
+
+def quad_cmp16(quad):
+    """`cmp16` of int32 quads."""
+    return cmp16(quad.to(torch.int32) * HASH_MULTIPLIER_I32, quad)
+
+
+def sig32(quads):
+    """32-bit quad fingerprint whose equality is quad equality, carried
+    through cheetah's and lion's planner sorts instead of the quad: the
+    hash on top, then `cmp16` (`_sig32`). sig32 == 0 <=> quad == 0."""
+    prod = quads * HASH_MULTIPLIER_I32
+    h = (prod >> 16) & 0xFFFF
+    c16 = cmp16(prod, quads)
+    return (h << 16) | c16
+
+
+def last_set_index(mask, idx):
+    """Inclusive running max of `idx` over the positions where `mask` is
+    set, -1 before the first (the index of the latest set position)."""
+    return torch.cummax(torch.where(mask, idx, -1), dim=-1).values
 
 
 def shift_n(x: torch.Tensor, s: int, fill, dim: int = -1) -> torch.Tensor:
@@ -60,32 +101,41 @@ def monoid_scan(combine, elems, identities, dim: int = -1):
     return state
 
 
-def prev_valid_value_in_group(group: torch.Tensor, values: torch.Tensor,
-                              valid: torch.Tensor, fill: int = 0):
-    """For each position i of each row: the value of the latest position
-    j < i with group[j] == group[i] and valid[j], else `fill`.
-
-    The group sort is `torch.sort` (stable): the JAX package computes
-    this with XLA's sort outside any Pallas kernel, and only the masked
-    fixed-point plan (streams with copy blocks) reaches it.
-    Returns (prev_value, has_prev) in original order.
-    """
+def _prev_in_group(group, values, valid):
+    """One stable sort by `group` (`torch.sort`: the JAX package sorts
+    here with XLA, outside any Pallas kernel, and only the masked plan of
+    streams with copy blocks reaches it), and at each sorted position
+    the latest valid position before it: (order, idx, sorted values,
+    sorted valid, that position clamped to 0, whether it is in the same
+    group)."""
     n = group.shape[-1]
     g_s, order = torch.sort(group, dim=-1, stable=True)
     v_s = torch.gather(values, -1, order)
     valid_s = torch.gather(valid, -1, order)
     idx = torch.arange(n, device=group.device).expand_as(order)
-    lv_incl = torch.cummax(torch.where(valid_s, idx, -1), dim=-1).values
-    lv = shift_right(lv_incl, -1)
+    lv = shift_right(last_set_index(valid_s, idx), -1)
     lv_c = lv.clamp(min=0)
-    same_group = torch.gather(g_s, -1, lv_c) == g_s
-    has_prev_s = (lv >= 0) & same_group
-    prev_val_s = torch.where(has_prev_s, torch.gather(v_s, -1, lv_c),
-                             torch.full_like(v_s, fill))
+    has_prev = (lv >= 0) & (torch.gather(g_s, -1, lv_c) == g_s)
+    return order, idx, v_s, valid_s, lv_c, has_prev
+
+
+def _unsort(order, idx, *xs):
+    """Sorted-order tensors back to input order."""
     inv = torch.empty_like(order)
     inv.scatter_(-1, order, idx.contiguous())
-    return (torch.gather(prev_val_s, -1, inv),
-            torch.gather(has_prev_s, -1, inv))
+    return tuple(torch.gather(x, -1, inv) for x in xs)
+
+
+def prev_valid_value_in_group(group: torch.Tensor, values: torch.Tensor,
+                              valid: torch.Tensor, fill: int = 0):
+    """For each position i of each row: the value of the latest position
+    j < i with group[j] == group[i] and valid[j], else `fill`.
+    Returns (prev_value, has_prev) in original order."""
+    order, idx, v_s, _, lv_c, has_prev_s = _prev_in_group(group, values,
+                                                          valid)
+    prev_val_s = torch.where(has_prev_s, torch.gather(v_s, -1, lv_c),
+                             torch.full_like(v_s, fill))
+    return _unsort(order, idx, prev_val_s, has_prev_s)
 
 
 def seg_last_active_before(first, vals, active):
@@ -270,6 +320,16 @@ def seg_selq_before(first, kind, depth, cval, K: int):
     return torch.where(first[..., None], 0, shift_right(inc, 0, dim))
 
 
+def contexts(hashes, valid):
+    """ctx_i = hash of the latest valid quad before i (0 if none): the
+    `last_hash` chain (cheetah.rs:148), which skips copy-block quads;
+    the masked planners' (`_contexts`)."""
+    n = hashes.shape[-1]
+    idx = torch.arange(n, device=hashes.device).expand_as(hashes)
+    lv = shift_right(last_set_index(valid, idx), -1)
+    return torch.where(lv >= 0, torch.gather(hashes, -1, lv.clamp(min=0)), 0)
+
+
 def ctx_fill(h, valid):
     """Dense last_hash chain: the hash of the latest valid position
     strictly before each one, 0 if none (cheetah.rs:148). A keep-right-
@@ -291,24 +351,16 @@ def mru2_state_in_group(group, values, valid):
     group; second = the valid value just before the run of equal values
     that the previous valid position ends. The sort is `torch.sort`,
     as the JAX package sorts here with XLA: only the masked plan of
-    streams with copy blocks reaches it. Returns both in input order."""
-    n = group.shape[-1]
-    g_s, order = torch.sort(group, dim=-1, stable=True)
-    v_s = torch.gather(values, -1, order)
-    valid_s = torch.gather(valid, -1, order)
-    idx = torch.arange(n, device=group.device).expand_as(order)
-    lv_incl = torch.cummax(torch.where(valid_s, idx, -1), dim=-1).values
-    lv = shift_right(lv_incl, -1)
-    lv_c = lv.clamp(min=0)
-    has_prev = (lv >= 0) & (torch.gather(g_s, -1, lv_c) == g_s)
+    streams with copy blocks reaches it (`_prev_in_group`). Returns both
+    in input order."""
+    order, idx, v_s, valid_s, lv_c, has_prev = _prev_in_group(group, values,
+                                                               valid)
     pv = torch.where(has_prev, torch.gather(v_s, -1, lv_c), 0)
     # a valid position starts a run where it has no valid predecessor in
     # its group or its value differs from that predecessor's
     run_start = valid_s & (~has_prev | (v_s != pv))
-    rs = torch.cummax(torch.where(run_start, idx, -1), dim=-1).values
+    rs = last_set_index(run_start, idx)
     before_run = torch.where(rs >= 0, torch.gather(pv, -1, rs.clamp(min=0)),
                              0)
     second = torch.where(has_prev, torch.gather(before_run, -1, lv_c), 0)
-    inv = torch.empty_like(order)
-    inv.scatter_(-1, order, idx.contiguous())
-    return torch.gather(pv, -1, inv), torch.gather(second, -1, inv)
+    return _unsort(order, idx, pv, second)

@@ -6,11 +6,13 @@ Counterpart of the JAX package's `engine/layout.py`, for any codec's
   * `fused`: the copy-free plan, the ragged-tail stamp, the pack kernel,
     the stream totals and the no-copy certificate in one pass
     (`fused_pallas_batched`);
-  * `run_encode`: that pass, and when a stream's certificate fails, the
-    fixed point over the copy-block set with the masked plan, the
-    protection FSM's step (`kernels/fsm.py`; the copy set stays on the
-    device, and a pass reads back two flags) and the masked (with-copy)
-    assembly (`run_encode`, `assemble_one`).
+  * `fixed_point`: the fixed point over the copy-block set with the
+    masked plan and the protection FSM's step (`kernels/fsm.py`; the copy
+    set stays on the device, and a pass reads back two flags), from a
+    caller's first plan: `run_encode`'s and `stats.encode_stats`'s;
+  * `run_encode`: the fused pass, and when a stream's certificate
+    fails, the fixed point and the masked (with-copy) assembly
+    (`assemble_one`).
 
 Quads are (S, n_q) int32 bit patterns of the little-endian input;
 n_q is a power of two >= 4096 (`stage_quads` pads to it), so every
@@ -214,6 +216,28 @@ def assemble_masked(pipe: Pipeline, quads, nbytes, copy, flags, pw, w0, w1,
     return out.reshape(S, ow), totals
 
 
+def fixed_point(pipe: Pipeline, quads, nbytes, plan):
+    """The fixed point over the copy-block set, from `plan`, the streams'
+    plan under no copy block (flags, pw, w0, w1, valid, bits): the
+    protection FSM decides the copies under the plan in hand and, while
+    they change, the masked plan is made anew under them, at most
+    `MAX_FIXED_POINT_ITERS` plans in all. The set stays on the quads'
+    device; a pass reads back two flags. Returns (copy, the plan made
+    under copy, converged, whether any block is a copy)."""
+    copy = torch.zeros_like(plan[-1])
+    converged = False
+    for it in range(MAX_FIXED_POINT_ITERS):
+        if it > 0:
+            plan = plan_masked(pipe, quads, nbytes, copy)
+        new_copy, changed, any_copy = step_fsm(plan[-1], nbytes, pipe.BLOCK,
+                                               copy)
+        if not changed:
+            converged = True
+            break
+        copy = new_copy
+    return copy, plan, converged, any_copy
+
+
 @traced("engine.encode")
 def run_encode(pipe: Pipeline, quads, nbytes):
     """Encode (S, n_q) staged quads. The fused copy-free pass is the
@@ -228,23 +252,12 @@ def run_encode(pipe: Pipeline, quads, nbytes):
     # point runs on the failing streams alone.
     fail = to_card(np.flatnonzero(~ok), quads.device)
     quads, nbytes = quads[fail], nbytes[fail]
-    flags, pw, w0, w1, valid, bits = (x[fail] for x in plan)
-    copy = torch.zeros_like(bits)
-    converged = False
-    for it in range(MAX_FIXED_POINT_ITERS):
-        if it > 0:
-            flags, pw, w0, w1, valid, bits = plan_masked(
-                pipe, quads, nbytes, copy)
-        new_copy, changed, any_copy = step_fsm(bits, nbytes, pipe.BLOCK,
-                                               copy)
-        if not changed:
-            converged = True
-            break
-        copy = new_copy
+    copy, plan, converged, any_copy = fixed_point(
+        pipe, quads, nbytes, tuple(x[fail] for x in plan))
     if converged and not any_copy:
         return out, totals, True  # the copy-free pass was already right
-    sub_out, sub_totals = assemble_masked(
-        pipe, quads, nbytes, copy, flags, pw, w0, w1, valid)
+    sub_out, sub_totals = assemble_masked(pipe, quads, nbytes, copy,
+                                          *plan[:-1])
     out[fail] = sub_out
     totals[fail] = sub_totals
     return out, totals, converged
@@ -265,20 +278,26 @@ def stage_quads(padded_u8: np.ndarray, device) -> torch.Tensor:
     return to_card(quads, device)
 
 
+def stage_stream(buf: np.ndarray, block: int, device):
+    """One non-empty stream of u8 `buf` as the encode takes it: its
+    (1, pad_quads) quads and (1,) nbytes on `device`."""
+    n = buf.size
+    padded = np.zeros((1, bucket_bytes(n, block)), np.uint8)
+    padded[0, :n] = buf
+    nbytes = torch.tensor([n], dtype=torch.int32, device=device)
+    return stage_quads(padded, device), nbytes
+
+
 def encode_oneshot(pipe: Pipeline, data, device=None) -> bytes:
     """Single-stream wrapper: bytes in, density-stream bytes out."""
     from density_tpu_torch import native
     from density_tpu_torch.parallel.mesh import resolve_device
     dev = resolve_device(device)
     buf = np.frombuffer(bytes(data), dtype=np.uint8)
-    n = buf.size
-    if n == 0:
+    if buf.size == 0:
         return b""
-    padded = np.zeros((1, bucket_bytes(n, pipe.BLOCK)), np.uint8)
-    padded[0, :n] = buf
-    nbytes = torch.tensor([n], dtype=torch.int32, device=dev)
-    out, totals, converged = run_encode(pipe, stage_quads(padded, dev),
-                                        nbytes)
+    out, totals, converged = run_encode(pipe,
+                                        *stage_stream(buf, pipe.BLOCK, dev))
     if not converged:  # pathological stream: the exact host encoder
         return native.encode(pipe.name, buf.tobytes())
     total = int(totals[0])

@@ -1,36 +1,45 @@
 """Decode-side layout engine: batched token extraction, chameleon map
-resolution on the sort kernel, and the token gathers and output assembly
-that cheetah and lion share.
+resolution on the sort kernel, and the decode that cheetah and lion
+share.
 
 Counterpart of the JAX package's `engine/unlayout.py` (its kernel
 branch). Reference semantics (chameleon.rs:105-135): a MAP token
 resolves to the nearest preceding PLAIN token with the same hash,
 because maps never modify the dictionary; first-in-group maps read the
-zero-initialized dictionary (value 0). Cheetah's and lion's tokens come
-from tensor gathers, as the JAX package extracts them (`_extract_tokens`
-of each codec, over a batch), and their quads are laid out by
-`assemble_quads` (each codec's `_assemble`).
+zero-initialized dictionary (value 0).
+
+Cheetah's and lion's decode (each codec's `_extract_tokens`,
+`_resolve_parallel_batched` and `_assemble`, over a batch) is written
+once here: tokens from tensor gathers (`gather_tokens`), values from
+the flag-driven dictionary chain and the context fixpoint
+(`resolve_predicted`), whose round body is the codec's, and the
+quads laid out by `assemble_quads`. Each codec binds them to its flags,
+signature and round body.
 """
 
 from __future__ import annotations
 
 import torch
 
+from density_tpu_torch.constants import BIAS, OP_ID, OP_INS, OP_SWAP
 from density_tpu_torch.constants import CHAMELEON as SPEC
-from density_tpu_torch.constants import HASH_MULTIPLIER_I32
-from density_tpu_torch.engine.grouping import hash_quads, monoid_scan, shift_right
+from density_tpu_torch.constants import PLAIN_FLAG
+from density_tpu_torch.engine.grouping import (
+    ctx_fill, hash_quads, monoid_scan, quad_cmp16, seg_sel2_before,
+    shift_right, sort_module)
+from density_tpu_torch.hostsync import read
 from density_tpu_torch.kernels import bigsort, unpack
+from density_tpu_torch.tracing import span
 
 INV_MHALF = 0x11B00B23  # (HASH_MULTIPLIER >> 1)^-1 mod 2^31
-BIAS = -2**31
+MAX_ROUNDS = 12  # the context fixpoint's default cap (the JAX package's)
 
 
-def quad_cmp16(quad):
-    """16-bit exact quad fingerprint given the hash: the low product bits
-    (their LSB is always 0 -- the multiplier is even) plus the quad's top
-    bit. (hash, cmp16) <-> quad is a bijection."""
-    prod = quad.to(torch.int32) * HASH_MULTIPLIER_I32
-    return ((prod & 0xFFFF) >> 1) | (((quad >> 31) & 1) << 15)
+def per_quad(blocks, q: int):
+    """(S, nb) per-block values -> (S, nb * q) per quad, with no host
+    sync."""
+    S, nb = blocks.shape
+    return blocks[:, :, None].expand(S, nb, q).reshape(S, nb * q)
 
 
 def quad_from_cmp16(h, c16):
@@ -124,11 +133,7 @@ def decode_chameleon_batch(words, woff, is_copy, nb_real, out_len):
         words, woff_k, is_copy, q=Q, sig_words=SPEC.sig_words,
         flag_bits=SPEC.flag_bits)
     blk_ok = is_real_block & ~is_copy
-
-    def per_quad(x):  # per block -> per quad, with no host sync
-        return x[:, :, None].expand(S, NB, Q).reshape(S, N)
-
-    valid = real & per_quad(blk_ok)
+    valid = real & per_quad(blk_ok, Q)
     is_map = (flags == 1) & valid
     is_plain = valid & ~is_map
     plain_quad = w0 | (w1 << 16)
@@ -138,18 +143,12 @@ def decode_chameleon_batch(words, woff, is_copy, nb_real, out_len):
     # copy blocks come out of unpack as raw halfword pairs; the ragged
     # final quad of a trailing copy block is real data too
     real_pad = kidx < ((out_len[:, None] + 3) // 4)
-    in_copy = real_pad & per_quad(is_copy & is_real_block)
+    in_copy = real_pad & per_quad(is_copy & is_real_block, Q)
     quads = torch.where(in_copy, plain_quad, quads)
     valid = valid | in_copy
     lo = torch.where(valid, quads & 0xFFFF, 0)
     hi = torch.where(valid, (quads >> 16) & 0xFFFF, 0)
     return torch.stack([lo, hi], dim=-1).reshape(S, 2 * N), bad
-
-
-def per_quad(blocks, q: int):
-    """(S, nb) per-block values -> (S, nb * q) per quad."""
-    S, nb = blocks.shape
-    return blocks[:, :, None].expand(S, nb, q).reshape(S, nb * q)
 
 
 def gather_tokens(words, woff, is_copy, nb_real, out_len, spec, sig_unpack,
@@ -203,3 +202,92 @@ def assemble_quads(quads, valid, words, woff, is_copy, nb_real, out_len,
     src = (woff[:, :, None] + j).clamp(0, cap - 1).reshape(S, -1)
     raw = torch.gather(words, 1, src).reshape(S, NB, wpb)
     return torch.where(cmask, raw, out).reshape(S, NB * wpb)
+
+
+def resolve_predicted(flags, w0, w1, valid, max_rounds: int = MAX_ROUNDS, *,
+                      spec, map_flags, predicted, round_tag, tag_bits: int,
+                      round_body):
+    """Cheetah's or lion's batched value resolution
+    (`_resolve_parallel_batched`), every sort on the kernel of
+    `sort_module`. (S, N) tensors, N a power of two.
+
+    The dictionary chain never involves predicted tokens, and every
+    other token's hash group is on the wire, so plain / map A / map B
+    values (`map_flags`) resolve in one segmented scan of flag-driven
+    ops. A predicted token (`predicted(flags)`) takes its value from
+    its context group, given the right contexts (ctx_i = the hash of
+    token i-1: the wire's for a map token, as the reference keeps it,
+    whatever quad its slot holds; the quad's for the others). Contexts
+    are unknown only after predicted tokens, so a round (one
+    `engine.resolve_round` span) sorts by (context, index << tag_bits |
+    round_tag(flags, nonpred, is_pred)) carrying the quads, and
+    `round_body(first, tags_s, quads_s)` gives each sorted position's
+    predicted value; the rounds iterate to the fixpoint, which is the
+    unique solution. Each round after the first reads, on the host,
+    whether any stream changed (one host sync a round).
+
+    Returns (quads, ok, rounds): ok[s] is False where stream s still
+    changed in the last of `rounds` rounds (it hit `max_rounds`)."""
+    sort = sort_module().sort
+    S, n_q = flags.shape
+    dev = flags.device
+    fb = spec.flag_bits
+    fmask = (1 << fb) - 1
+    lidx = torch.arange(n_q, dtype=torch.int32, device=dev)[None, :].expand(
+        S, n_q)
+    plain_quad = w0 | (w1 << 16)
+    is_pred = predicted(flags) & valid
+    nonpred = valid & ~is_pred
+    is_plain = (flags == PLAIN_FLAG) & valid
+    map_a, map_b = map_flags
+
+    # dictionary chain: exact, one pass
+    key = torch.where(nonpred, torch.where(is_plain, hash_quads(plain_quad),
+                                           w0), 1 << 16)
+    op = torch.where(is_plain, OP_INS, torch.where(
+        (flags == map_b) & valid, OP_SWAP, OP_ID))
+    op = torch.where(nonpred, op, OP_ID).to(torch.int32)
+    k_s, k2_s, cv_s = sort(key, (lidx << (fb + 2)) | (op << fb)
+                           | (flags & fmask), plain_quad, n_keys=2)
+    a_b, b_b = seg_sel2_before(k_s != shift_right(k_s, -1),
+                               (k2_s >> fb) & 3, cv_s)
+    fl_s = k2_s & fmask
+    val_s = torch.where(fl_s == map_a, a_b,
+                        torch.where(fl_s == map_b, b_b, cv_s))
+    _, dv = sort(k2_s >> (fb + 2), val_s, n_keys=1)
+    quads = torch.where(nonpred, dv, 0)
+
+    # context fixpoint for the predicted tokens
+    ckey = ((lidx << tag_bits)
+            | round_tag(flags, nonpred, is_pred)).to(torch.int32)
+    changed = torch.ones(S, dtype=torch.bool, device=dev)
+    rounds = 0
+    while rounds < max_rounds and (rounds == 0 or bool(read(changed.any()))):
+        with span("engine.resolve_round"):
+            ctx = ctx_fill(torch.where(nonpred, key, hash_quads(quads)),
+                           valid)
+            ck_s, ck2_s, q_s = sort(torch.where(valid, ctx, 1 << 16), ckey,
+                                    quads, n_keys=2)
+            fill = round_body(ck_s != shift_right(ck_s, -1), ck2_s, q_s)
+            _, pv = sort(ck2_s >> tag_bits, fill, n_keys=1)
+            new = torch.where(is_pred, pv, quads)
+            changed = torch.any((new != quads) & is_pred, dim=1)
+            quads = new
+            rounds += 1
+    # a stream unchanged in the last round is at its own fixpoint (its
+    # update reads only its own positions), hence exactly decoded
+    return quads, ~changed, rounds
+
+
+def decode_predicted_batch(words, woff, is_copy, nb_real, out_len,
+                           max_rounds: int = MAX_ROUNDS, *, extract,
+                           resolve, block: int):
+    """Cheetah's or lion's device decode of staged streams, from the
+    codec's bound `extract` (`gather_tokens`) and `resolve`
+    (`resolve_predicted`): (S, NB * block / 2) int32 halfwords, the (S,)
+    converged flags and the fixpoint's rounds. NB * block / 4 must be a
+    power of two."""
+    flags, w0, w1, valid = extract(words, woff, is_copy, nb_real, out_len)
+    quads, ok, rounds = resolve(flags, w0, w1, valid, max_rounds)
+    return assemble_quads(quads, valid, words, woff, is_copy, nb_real,
+                          out_len, block), ok, rounds

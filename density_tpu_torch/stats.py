@@ -6,7 +6,7 @@ benches/density.rs:26). `stream_stats` walks a compressed stream on the
 host; `encode_stats` runs the device planner and reduces the flag
 histogram and the payload bytes on the device, so that only a few
 scalars and the copy-block set cross to the host (the set is decided by
-`layout.step_fsm` on the device, as in `layout.run_encode`).
+`layout.fixed_point` on the device, as in `layout.run_encode`).
 """
 
 from __future__ import annotations
@@ -83,10 +83,9 @@ def stream_stats(codec: str, data: bytes, compressed: bytes) -> StreamStats:
 
 def encode_stats(codec: str, data: bytes, device=None) -> StreamStats:
     """Encode-side statistics of `data` as one stream, from the device
-    planner: the codec's copy-free plan, then the masked plan and the
-    protection FSM until the copy-block set stops changing (at most
-    `layout.MAX_FIXED_POINT_ITERS` plans, as `layout.run_encode`), and the
-    flag histogram and payload bytes reduced on the device.
+    planner: the codec's copy-free plan, then `layout.fixed_point` (as in
+    `layout.run_encode`), and the flag histogram and payload bytes of
+    the plan under its copy set reduced on the device.
     Equals `stream_stats(codec, data, native.encode(codec, data))`; a
     stream whose fixed point does not converge is encoded natively and
     walked instead, as `run_encode` leaves it to the native encoder."""
@@ -100,25 +99,10 @@ def encode_stats(codec: str, data: bytes, device=None) -> StreamStats:
     if n == 0:
         return StreamStats(codec, 0, 0, 0, 0,
                            {v: 0 for v in _FLAG_NAMES[codec].values()})
-    padded = np.zeros((1, layout.bucket_bytes(n, spec.block_size)), np.uint8)
-    padded[0, :n] = buf
-    quads = layout.stage_quads(padded, dev)
-    nbytes = torch.tensor([n], dtype=torch.int32, device=dev)
-
-    copy = torch.zeros((1, quads.shape[1] // pipe.Q), dtype=torch.bool,
-                       device=dev)
-    for it in range(layout.MAX_FIXED_POINT_ITERS):
-        if it == 0:
-            flags, pw, _, _, valid, bits = pipe.plan_fast(quads, nbytes)
-        else:
-            flags, pw, _, _, valid, bits = layout.plan_masked(
-                pipe, quads, nbytes, copy)
-        new_copy, changed, _ = layout.step_fsm(bits, nbytes, pipe.BLOCK,
-                                               copy)
-        if not changed:
-            break
-        copy = new_copy
-    else:
+    quads, nbytes = layout.stage_stream(buf, spec.block_size, dev)
+    copy, (flags, pw, _, _, valid, _), converged, _ = layout.fixed_point(
+        pipe, quads, nbytes, pipe.plan_fast(quads, nbytes))
+    if not converged:
         return stream_stats(codec, data, native.encode(codec, data))
 
     # the plan in hand was made under `copy`: reduce it on the device

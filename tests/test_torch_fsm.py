@@ -139,3 +139,72 @@ def test_encode_stats_fixed_point_matches_jax(monkeypatch, codec, capped):
     want = jstats.stream_stats(codec, data, jnative.encode(codec, data))
     assert got.copy_blocks > 0
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def _one_fixed_point(run):
+    """`run()` with `layout.fixed_point`, `plan_masked` and `step_fsm`
+    counted: (the copy set of each fixed point on the host, the calls of
+    plan_masked, the calls of step_fsm)."""
+    copies, counts = [], {"plan_masked": 0, "step_fsm": 0}
+    with pytest.MonkeyPatch.context() as mp:
+        for name in counts:
+            def counted(*a, _fn=getattr(layout, name), _name=name):
+                counts[_name] += 1
+                return _fn(*a)
+            mp.setattr(layout, name, counted)
+
+        def fixed_point(*a, _fn=layout.fixed_point):
+            got = _fn(*a)
+            copies.append(got[0].cpu().numpy())
+            return got
+        mp.setattr(layout, "fixed_point", fixed_point)
+        run()
+    return copies, counts["plan_masked"], counts["step_fsm"]
+
+
+def _run_encode(codec, data):
+    from density_tpu_torch.parallel import sharding
+    pipe = sharding.codec_module(codec).PIPELINE
+    buf = np.frombuffer(data, np.uint8)
+    _, _, converged = layout.run_encode(
+        pipe, *layout.stage_stream(buf, pipe.BLOCK, "cpu"))
+    assert converged is True
+
+
+CALLERS = {
+    "run_encode": _run_encode,
+    "encode_stats": lambda codec, data: pstats.encode_stats(
+        codec, data, device="cpu"),
+}
+
+
+@pytest.mark.parametrize("caller", list(CALLERS))
+@pytest.mark.parametrize("codec", CODECS)
+def test_one_fixed_point_counts_its_passes(codec, caller):
+    """Each caller runs `layout.fixed_point` once on a stream of several
+    passes: a pass is one `step_fsm`, and every pass after the first
+    plans anew, so `plan_masked` runs passes - 1 times."""
+    data = _multipass()
+    copies, masked, passes = _one_fixed_point(
+        lambda: CALLERS[caller](codec, data))
+    assert len(copies) == 1 and copies[0].any()
+    assert passes >= 2 and masked == passes - 1
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_callers_reach_one_copy_set(codec):
+    """`run_encode` and `encode_stats` reach the same copy-block set on a
+    stream of several passes, in as many passes: the native encoder's
+    copy blocks."""
+    data = _multipass()
+    got = [_one_fixed_point(lambda f=f: f(codec, data))
+           for f in CALLERS.values()]
+    (enc_copy,), enc_masked, enc_passes = got[0]
+    (st_copy,), st_masked, st_passes = got[1]
+    np.testing.assert_array_equal(enc_copy, st_copy)
+    assert (enc_masked, enc_passes) == (st_masked, st_passes)
+    _, _, is_copy = jnative.scan(codec, jnative.encode(codec, data))
+    n_blocks = len(is_copy)
+    np.testing.assert_array_equal(enc_copy[0, :n_blocks],
+                                  np.asarray(is_copy, bool))
+    assert not enc_copy[0, n_blocks:].any()

@@ -810,8 +810,8 @@ def _mtf_inputs(kind, S, n, seed):
     tail invalid as past a stream's end; "boundaries": segments starting
     on, and one before, every run of a thread (16 elements), warp (512)
     and block (4096) of the kernel's tiles."""
-    from density_tpu_torch.codecs import lion
-    from density_tpu_torch.engine.grouping import hash_quads, shift_right
+    from density_tpu_torch.engine.grouping import (
+        hash_quads, shift_right, sig32)
     rng = np.random.default_rng(seed)
     if kind == "plan":
         buf = np.frombuffer(_data(seed, S * n * 4), np.int32).reshape(S, n)
@@ -822,7 +822,7 @@ def _mtf_inputs(kind, S, n, seed):
         order = torch.sort(key, dim=-1).indices
         c_s = torch.gather(ctx, -1, order)
         first = c_s != shift_right(c_s, -1)
-        vals = torch.gather(lion.sig32(quads), -1, order)
+        vals = torch.gather(sig32(quads), -1, order)
         valid = torch.gather(idx.expand(S, n), -1, order) < n - n // 4
         return first, vals, valid
     first = rng.random((S, n)) < 0.05

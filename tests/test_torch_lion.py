@@ -294,3 +294,29 @@ def test_assemble_matches(decode_case):
     want = jax.vmap(jlion._assemble)(jnp.asarray(quads), jnp.asarray(toks[3]),
                                      *jargs)
     _eq(got, want)
+
+
+@pytest.mark.parametrize("cap", [2, 64])
+@pytest.mark.parametrize("codec", ["cheetah", "lion"])
+def test_decode_batch_rounds_and_cap(codec, cap):
+    """Both codecs' device decode (`unlayout.decode_predicted_batch`, one
+    shell for both) on an alphabet stream and a text stream whose context
+    fixpoint takes several rounds: at a cap of 2 the rounds stop there
+    and the text stream is flagged; at 64 both converge in fewer rounds.
+    Every stream flagged converged decodes to its input."""
+    mod = sharding.codec_module(codec)
+    rng = np.random.default_rng(5)
+    text = (_stdlib_text(4 * N) if codec == "cheetah"
+            else _chopped(rng, 4 * N))
+    data = [_alphabet(rng, N), text]
+    streams = [jnative.encode(codec, d) for d in data]
+    lens = [len(d) for d in data]
+    woff, copyf, nb_real, _ = sharding._scan(codec, streams, lens)
+    out, ok, rounds = mod.decode_batch(
+        *sharding._stage(streams, lens, woff, copyf, nb_real, "cpu"),
+        max_rounds=cap)
+    assert ok.tolist() == [True, cap > 2]
+    assert rounds == cap if cap == 2 else 2 < rounds < cap
+    for s in np.flatnonzero(ok.numpy()):
+        got = out[s, :lens[s] // 2].numpy().astype("<u2").tobytes()
+        assert got == data[s]

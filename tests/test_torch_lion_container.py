@@ -18,7 +18,7 @@ from density_tpu_torch import api as papi
 from density_tpu_torch import container as pcontainer
 from density_tpu_torch import native as pnative
 from density_tpu_torch.codecs import lion as plion
-from density_tpu_torch.engine import layout
+from density_tpu_torch.engine import layout, unlayout
 from density_tpu_torch.errors import DecodeError
 from density_tpu_torch.parallel import sharding
 from tests.test_cheetah_lion_jax import _cases
@@ -114,7 +114,7 @@ def test_unconverged_decode_is_redone_by_native(monkeypatch):
     woff, copyf, nb_real, _ = sharding._scan("lion", streams, lens)
     _, ok, rounds = plion.decode_batch(*sharding._stage(
         streams, lens, woff, copyf, nb_real, "cpu"))
-    assert rounds == plion.MAX_ROUNDS and 0 < int((~ok).sum())
+    assert rounds == unlayout.MAX_ROUNDS and 0 < int((~ok).sum())
     calls = []
     dec = pnative.decode
     monkeypatch.setattr(pnative, "decode",

@@ -29,7 +29,7 @@ from density_tpu_torch import api as papi
 from density_tpu_torch import container as pcontainer
 from density_tpu_torch import host_scan
 from density_tpu_torch.codecs import chameleon as pcham
-from density_tpu_torch.engine import layout
+from density_tpu_torch.engine import grouping, layout
 from density_tpu_torch.errors import DecodeError, EncodeError
 from density_tpu_torch.kernels import bitonic, pack, packroute
 
@@ -142,7 +142,7 @@ def test_plan_fast_bitonic_option_two_key_branch(monkeypatch):
     tn = torch.tensor([(1 << 19) - 1], dtype=torch.int32)
     default = pcham.plan_fast(tq, tn)
     monkeypatch.setenv("DENSITY_TPU_SORT", "bitonic")
-    assert pcham._sort_mod() is bitonic
+    assert grouping.sort_module() is bitonic
     for g, w in zip(pcham.plan_fast(tq, tn), default):
         assert torch.equal(g, w)
 

@@ -196,13 +196,13 @@ def test_resolve_rounds_are_spans_of_the_device_decode(monkeypatch):
     fixpoint is an `engine.resolve_round` span inside `engine.decode`."""
     from density_tpu_torch.codecs import lion
     rounds = []
-    resolve = lion.resolve
+    decode_batch = lion.decode_batch
 
     def counted(*args, **kwargs):
-        got = resolve(*args, **kwargs)
+        got = decode_batch(*args, **kwargs)
         rounds.append(got[2])
         return got
-    monkeypatch.setattr(lion, "resolve", counted)
+    monkeypatch.setattr(lion, "decode_batch", counted)
     monkeypatch.setattr(sharding, "PREDICTED_DEVICE_CUTOFF", 1.0)
     data = _mixed(9, 16384)
     blob = container.compress(data, "lion", 16384, device="cpu")
