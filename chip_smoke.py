@@ -186,9 +186,12 @@ REPLACES = {
     "bitonic": "density_tpu/kernels/bitonic.py:121",
     # no Pallas kernel: the JAX package's jax.lax.associative_scan
     "mtf": "density_tpu/engine/mtf.py:54",
+    # the same scan at K=2: the JAX package's MTF-2 associative_scan
+    "mtf2": "density_tpu/engine/grouping.py:181",
     # no Pallas kernel: the JAX package's jax.lax.scan
     "fsm": "density_tpu/engine/protection.py:32",
 }
+SOURCE = {"mtf2": "mtf"}  # a row's kernel source where it is not its name
 CHAM = dict(q=64, sig_words=4, block=256, flag_bits=1)
 CHEE = dict(q=32, sig_words=4, block=128, flag_bits=2)
 LION = dict(q=16, sig_words=3, block=64, flag_bits=3)
@@ -330,12 +333,20 @@ def kernel_modules() -> dict:
 
 
 def reset_counts() -> None:
+    from density_tpu_torch.kernels import mtf
     for m in kernel_modules().values():
         m.launches = 0
+    for k in mtf.launches_k:
+        mtf.launches_k[k] = 0
 
 
 def read_counts() -> dict:
-    return {k: m.launches for k, m in kernel_modules().items()}
+    """Each kernel's launches, and the MTF kernel's by K as "mtf5" and
+    "mtf2"."""
+    from density_tpu_torch.kernels import mtf
+    counts = {k: m.launches for k, m in kernel_modules().items()}
+    counts.update({f"mtf{k}": n for k, n in mtf.launches_k.items()})
+    return counts
 
 
 def sort_inputs(rng, dev, S: int, N: int, n_arrays: int, n_keys: int,
@@ -660,6 +671,7 @@ def phase_main_path(dev, data: bytes):
     back = container.decompress(blob, device=dev)
     dt = time.time() - t
     counts = read_counts()
+    check_mtf_per_plan("chameleon", counts, None)
     if back != data:
         raise AssertionError("main path round trip differs from the input")
     parts = payloads(blob)
@@ -1187,12 +1199,20 @@ def compress_on_device(dev, data: bytes, codec: str, stream: int):
 
 def check_mtf_per_plan(codec: str, counts: dict, plans) -> None:
     """(e) Lion's planner scans its prediction queue once a plan, in one
-    launch of the MTF-5 kernel; chameleon and cheetah never launch it."""
-    want = plans[0] + plans[1] if codec == "lion" else 0
-    if counts["mtf"] != want:
-        raise AssertionError(f"{codec}: {counts['mtf']} MTF-5 launches for "
-                             f"{plans[0]} copy-free and {plans[1]} masked "
-                             f"plans (want {want})")
+    K=5 launch of the MTF kernel; cheetah's and lion's copy-free plans
+    scan their dictionaries in one K=2 launch each (the masked plans in
+    closed form, `mru2_state_in_group`); chameleon launches neither."""
+    want = {"mtf5": 0, "mtf2": 0}
+    if codec != "chameleon":
+        want["mtf2"] = plans[0]
+    if codec == "lion":
+        want["mtf5"] = plans[0] + plans[1]
+    got = {k: counts[k] for k in want}
+    if got != want or counts["mtf"] != sum(want.values()):
+        where = (f" for {plans[0]} copy-free and {plans[1]} masked plans"
+                 if plans else "")
+        raise AssertionError(f"{codec}: MTF launches {got} (all K: "
+                             f"{counts['mtf']}){where}, want {want}")
 
 
 def check_fsm_per_pass(codec: str, counts: dict, plans) -> None:
@@ -1583,24 +1603,32 @@ def time_lion_packs(lion_in, lion_small) -> None:
                   "launch per call"))
 
 
-def mtf_plan_inputs(quads, nbytes):
-    """The MTF-5 scan's operands (first, values, valid) as lion's
-    copy-free plan of `quads` hands them over."""
-    from density_tpu_torch.codecs import lion
-    seen, scan = [], lion.mtf_depths_sorted
-    lion.mtf_depths_sorted = lambda *a: seen.append(a[:3]) or scan(*a)
+# the MTF kernel's depth K: its caller, and the scan it takes the operands
+# of (the planner's module attribute, wrapped while it plans)
+MTF_SCANS = {5: ("lion", "mtf_depths_sorted"),
+             2: ("cheetah", "mtf2_depths_sorted")}
+
+
+def mtf_plan_inputs(K: int, quads, nbytes):
+    """The MTF-K scan's operands (first, values, valid) as the copy-free
+    plan of `quads` of MTF_SCANS[K]'s codec hands them over."""
+    import importlib
+    codec, name = MTF_SCANS[K]
+    mod = importlib.import_module(f"density_tpu_torch.codecs.{codec}")
+    seen, scan = [], getattr(mod, name)
+    setattr(mod, name, lambda *a: seen.append(a[:3]) or scan(*a))
     try:
-        lion.plan_fast(quads, nbytes)
+        mod.plan_fast(quads, nbytes)
     finally:
-        lion.mtf_depths_sorted = scan
+        setattr(mod, name, scan)
     (ops,) = seen
     return ops
 
 
-def mtf_shapes(dev, data: bytes, lion_in, large_quads) -> dict:
-    """The scan's operands at lion's plan shapes: the corpus's 38 full
-    256 KiB streams, its tail (S=1 x 65536) and the corpus as one
-    2^22-quad row."""
+def mtf_shapes(dev, data: bytes, K: int, codec_in, large_quads) -> dict:
+    """The MTF-K scan's operands at its codec's plan shapes: the corpus's
+    38 full 256 KiB streams, its tail (S=1 x 65536) and the corpus as one
+    2^22-quad row (the planner's 2-key branch)."""
     import torch
     from density_tpu_torch.engine import layout
     from density_tpu_torch.parallel import sharding
@@ -1609,43 +1637,56 @@ def mtf_shapes(dev, data: bytes, lion_in, large_quads) -> dict:
         np.frombuffer(tail, np.uint8), len(tail), 1,
         layout.bucket_bytes(STREAM, 64), STREAM, dev)
     big_nb = torch.tensor([len(data)], dtype=torch.int32, device=dev)
-    return {f"S={q.shape[0]} n={q.shape[1]}": mtf_plan_inputs(q, nb)
-            for q, nb in ((lion_in["quads"], lion_in["nbytes"]),
+    return {f"S={q.shape[0]} n={q.shape[1]}": mtf_plan_inputs(K, q, nb)
+            for q, nb in ((codec_in["quads"], codec_in["nbytes"]),
                           (tail_quads, tail_nb), (large_quads, big_nb))}
 
 
-def parity_mtf(shapes: dict) -> int:
-    """(b) The MTF-5 kernel against its plain version on lion's plan
-    operands; returns the largest error."""
+def mtf_plain(K: int):
+    """The plain versions the MTF-K kernel is held to: the K-slot scan,
+    and at K=2 the planners' MTF-2 op chain too."""
+    from functools import partial
+    from density_tpu_torch.kernels import mtf
+    plain = [partial(mtf.depths_plain, K=K)]
+    return plain + [mtf.mtf2_plain] if K == 2 else plain
+
+
+def parity_mtf(shapes: dict, K: int) -> int:
+    """(b) The MTF-K kernel against its plain versions on its codec's
+    plan operands; returns the largest error."""
     import torch
     from density_tpu_torch.kernels import mtf
     err = 0
     for ops in shapes.values():
-        got = mtf.depths(*ops, 5)
+        got = mtf.depths(*ops, K)
         torch.cuda.synchronize()
-        err = max(err, max_abs_err(got, mtf.depths_plain(*ops, 5)))
-    log(f"(b) mtf at lion's plan shapes {sorted(shapes)}: max_abs_err {err}")
+        for plain in mtf_plain(K):
+            err = max(err, max_abs_err(got, plain(*ops)))
+    log(f"(b) mtf at K={K}, {MTF_SCANS[K][0]}'s plan shapes "
+        f"{sorted(shapes)}: max_abs_err {err}")
     return err
 
 
-def time_mtf(shapes: dict) -> dict:
-    """(f) The MTF-5 kernel at lion's plan shapes with its kernel launches
-    per scan, beside its bound (each element's two flags and value read
-    and its depth written once) and its plain version. Returns the row of
-    the 38-stream shape."""
+def time_mtf(shapes: dict, K: int) -> dict:
+    """(f) The MTF-K kernel at its codec's plan shapes with its kernel
+    launches per scan, beside its bound (each element's two flags and
+    value read and its depth written once) and its plain version (at
+    K=2 the planners' op chain). Returns the row of the 38-stream
+    shape."""
     from density_tpu_torch.kernels import mtf
     rows = {}
+    plain = mtf_plain(K)[-1]
     for shape, ops in shapes.items():
         n_el = ops[1].numel()
-        ms, n = device_profile(lambda: mtf.depths(*ops, 5))
+        ms, n = device_profile(lambda: mtf.depths(*ops, K))
         if round(n) != 1:
             raise AssertionError(f"mtf made {n:g} kernel launches a scan")
         rows[shape] = dict(
-            ms=ms, plain_ms=device_ms(lambda: mtf.depths_plain(*ops, 5),
-                                      iters=3),
+            ms=ms, plain_ms=device_ms(lambda: plain(*ops), iters=3),
             library_ms=None, bound=bound_ms(10 * n_el, 0),
-            shape=f"lion's plan: {shape}; {n:g} kernel launch per scan")
-        log_row("mtf", rows[shape])
+            shape=f"K={K}, {MTF_SCANS[K][0]}'s plan: {shape}; {n:g} "
+                  "kernel launch per scan")
+        log_row("mtf" if K == 5 else "mtf2", rows[shape])
     return next(iter(rows.values()))
 
 
@@ -1775,7 +1816,7 @@ def time_codec(dev, codec, inputs, conv_dargs, conv_data, data,
 RANK_TIMEOUT = 300  # seconds for each rank of phase (u)
 RANK_INPUTS = ("corpus", "alphabet", "vocab")
 PATH_KERNELS = {"chameleon": ("bigsort", "packroute", "unpack"),
-                "cheetah": ("bigsort", "packroute"),
+                "cheetah": ("bigsort", "packroute", "mtf"),
                 "lion": ("bigsort", "packroute", "mtf")}
 
 
@@ -2641,8 +2682,10 @@ def main() -> int:
         for k, e in parity_codec(dev, codec, big_in, small_in,
                                  large_quads).items():
             errs[k] = max(errs[k], e)
-    mtf_ops = mtf_shapes(dev, data, paths["lion"][0], large_quads)
-    errs["mtf"] = parity_mtf(mtf_ops)
+    mtf_ops = {K: mtf_shapes(dev, data, K, paths[MTF_SCANS[K][0]][0],
+                             large_quads) for K in MTF_SCANS}
+    errs["mtf"] = parity_mtf(mtf_ops[5], 5)
+    errs["mtf2"] = parity_mtf(mtf_ops[2], 2)
     fsm_ops = fsm_shapes(dev, data, paths)
     errs["fsm"] = parity_fsm(fsm_ops)
     main_counts, main_blob = phase_main_path(dev, data)
@@ -2688,12 +2731,14 @@ def main() -> int:
     counts = {k: main_counts[k] for k in ("bigsort", "packroute", "unpack")}
     counts["pack"] = small_counts["pack"]
     counts["bitonic"] = opt_counts["bitonic"]
-    counts["mtf"] = lion_counts["mtf"]
+    counts["mtf"] = lion_counts["mtf5"]
+    counts["mtf2"] = cheetah_counts["mtf2"]
     counts["fsm"] = lion_counts["fsm"]
     log(f"(e) launches: bigsort/packroute/unpack on the main path (c), "
         f"pack on the small-stream paths (g), bitonic under "
-        f"DENSITY_TPU_SORT=bitonic (h), mtf on lion's main path (p), one "
-        f"a plan, fsm on lion's main path (p), one a pass of the fixed "
+        f"DENSITY_TPU_SORT=bitonic (h), mtf at K=5 on lion's main path "
+        f"(p), one a plan, at K=2 (mtf2) on cheetah's (k), one a copy-free "
+        f"plan, fsm on lion's main path (p), one a pass of the fixed "
         f"point: {counts}; on cheetah's main path "
         f"(k): {cheetah_counts}; on lion's main path (p): {lion_counts}, "
         f"its 16 KiB path (r): {lion_small_counts}")
@@ -2703,7 +2748,8 @@ def main() -> int:
     rows.update(phase_small_timing(dev, inputs, small))
     time_sort_3(dev, paths["cheetah"][0], large_quads)
     time_lion_packs(*paths["lion"])
-    rows["mtf"] = time_mtf(mtf_ops)
+    rows["mtf"] = time_mtf(mtf_ops[5], 5)
+    rows["mtf2"] = time_mtf(mtf_ops[2], 2)
     rows["fsm"] = time_fsm(fsm_ops)
     for codec, blob in (("cheetah", cheetah_blob), ("lion", lion_blob)):
         conv_data, _, conv_dargs = conv[codec]
@@ -2713,8 +2759,8 @@ def main() -> int:
     # sessions came back with no device event in most runs (PERF.md)
     phase_shares(dev, data, one, conv, small_blobs[SMALL_STREAMS[1]],
                  large_blobs[LARGE_STREAMS[0]], args.parent, args.seed)
-    kernels = [dict(name=name, route="cuda",
-                    source=f"density_tpu_torch/csrc/{name}.cu",
+    kernels = [dict(name=name, route="cuda", source="density_tpu_torch/csrc/"
+                    f"{SOURCE.get(name, name)}.cu",
                     replaces=REPLACES[name], launches=counts[name],
                     max_abs_err=errs[name], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound"][0],

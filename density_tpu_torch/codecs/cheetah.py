@@ -12,8 +12,10 @@ Encode, as sorts: prediction_map[ctx] holds the quad of the latest
 earlier position with the same context (the previous quad's hash), so a
 quad is predicted <=> it equals the previous quad of its context group;
 the dictionary is a 2-deep move-to-front list per hash over the
-non-predicted quads, an MTF-2 scan within hash groups (each scan, in a
-copy-free or a masked plan, is the span `engine.mtf2`). Decode is
+non-predicted quads, an MTF-2 scan within hash groups (the copy-free
+plan's is `engine/mtf.py::mtf2_depths_sorted`, one launch of the MTF
+kernel at K=2 on the card; each scan, in a copy-free or a masked plan,
+is the span `engine.mtf2`). Decode is
 `unlayout`'s, shared with lion (`unlayout.resolve_predicted`): the
 dictionary chain is flag-driven, one segmented scan; predicted values
 come from a context fixpoint whose round (`_round`) fills each
@@ -38,8 +40,8 @@ from density_tpu_torch.constants import (
 from density_tpu_torch.engine import layout, unlayout
 from density_tpu_torch.engine.grouping import (
     contexts, hash_quads, mru2_state_in_group, prev_valid_value_in_group,
-    seg_last_active_before, seg_mtf2_before, seg_mtf2_before_packed,
-    shift_right, sig32, sort_module)
+    seg_last_active_before, shift_right, sig32, sort_module)
+from density_tpu_torch.engine.mtf import mtf2_depths_sorted
 from density_tpu_torch.kernels.packroute import signature_words
 from density_tpu_torch.tracing import span
 
@@ -138,20 +140,16 @@ def plan_fast(quads: torch.Tensor, nbytes: torch.Tensor):
         h_s = (ku2 >> 16) & 0xFFFF
         k2_s = ((ku2 & 0xFFFF) << 2) | (p_s & 3)
         v2 = p_s >> 2
-        act_s = ((k2_s >> 1) & 1) == 1
-        with span("engine.mtf2"):
-            front, second = seg_mtf2_before_packed(
-                h_s != shift_right(h_s, -1), v2, act_s)
     else:
         k2 = ((i_s << 2) | (act_ctx.to(torch.int32) << 1)
               | pred_s.to(torch.int32))
         h_s, k2_s, v2 = sort(h_ctx, k2, v_s, n_keys=2)
-        act_s = ((k2_s >> 1) & 1) == 1
-        with span("engine.mtf2"):
-            front, second = seg_mtf2_before(h_s != shift_right(h_s, -1),
-                                            v2, act_s)
-    a_s = v2 == front
-    b_s = ~a_s & (v2 == second)
+    act_s = ((k2_s >> 1) & 1) == 1
+    with span("engine.mtf2"):
+        depth2 = mtf2_depths_sorted(h_s != shift_right(h_s, -1), v2, act_s)
+    # the dictionary flags of active positions (the rest are masked below)
+    a_s = depth2 == 0
+    b_s = depth2 == 1
     packed = (((k2_s >> 2) << 3) | ((k2_s & 1) << 2)
               | (a_s.to(torch.int32) << 1) | b_s.to(torch.int32))
     (up,) = sort(packed, n_keys=1)

@@ -13,7 +13,8 @@ Encode, as sorts: the queue is a move-to-front list over the quads of
 each context group, so every quad's predicted depth comes from one
 segmented MTF-5 scan (`engine/mtf.py`) over the quads sorted by context;
 the dictionary is cheetah's MTF-2 scan over the non-predicted quads of
-each hash group. Every stream is padded to a power of two of at least
+each hash group (on the card the same kernel at K=2; the span
+`engine.mtf2`). Every stream is padded to a power of two of at least
 4096 quads (`layout.pad_quads`), so the planner always runs on the sort
 kernel: the JAX package's XLA planner for other lengths
 (`classify_fast`) has no counterpart here.
@@ -41,10 +42,12 @@ from density_tpu_torch.constants import (
     OP_SWAP, PLAIN_FLAG)
 from density_tpu_torch.engine import layout, unlayout
 from density_tpu_torch.engine.grouping import (
-    contexts, hash_quads, mru2_state_in_group, seg_mtf2_before,
-    seg_mtf2_before_packed, seg_selq_before, shift_right, sig32, sort_module)
-from density_tpu_torch.engine.mtf import mtf_depths_in_group, mtf_depths_sorted
+    contexts, hash_quads, mru2_state_in_group, seg_selq_before, shift_right,
+    sig32, sort_module)
+from density_tpu_torch.engine.mtf import (
+    mtf2_depths_sorted, mtf_depths_in_group, mtf_depths_sorted)
 from density_tpu_torch.kernels.packroute import signature_words
+from density_tpu_torch.tracing import span
 
 Q = SPEC.quads_per_block  # 16
 SIG_WORDS = SPEC.sig_words  # 3
@@ -81,7 +84,8 @@ def classify(quads, hashes, real, copy_blocks):
     ctx = contexts(hashes, valid)
     depth = mtf_depths_in_group(ctx, quads, valid, K)  # K: a miss
     dict_valid = valid & (depth >= K)
-    front, second = mru2_state_in_group(hashes, quads, dict_valid)
+    with span("engine.mtf2"):
+        front, second = mru2_state_in_group(hashes, quads, dict_valid)
     map_a = quads == front
     map_b = ~map_a & (quads == second)
     return (*_tokens(depth, map_a, map_b, valid, quads, hashes), valid)
@@ -155,17 +159,16 @@ def plan_fast(quads: torch.Tensor, nbytes: torch.Tensor):
         h_s = (ku2 >> 16) & 0xFFFF
         k2_s = ((ku2 & 0xFFFF) << 4) | (p_s & 15)
         v2 = p_s >> 4
-        act_s = ((k2_s >> 3) & 1) == 1
-        front, second = seg_mtf2_before_packed(
-            h_s != shift_right(h_s, -1), v2, act_s)
     else:
         k2 = (i_s << 4) | (act_ctx << 3) | depth_s
         h_s, k2_s, v2 = sort(h_ctx, k2, v_s, n_keys=2)
-        act_s = ((k2_s >> 3) & 1) == 1
-        front, second = seg_mtf2_before(h_s != shift_right(h_s, -1), v2,
-                                        act_s)
-    a_s = v2 == front
-    b_s = ~a_s & (v2 == second)
+    act_s = ((k2_s >> 3) & 1) == 1
+    with span("engine.mtf2"):
+        depth2 = mtf2_depths_sorted(h_s != shift_right(h_s, -1), v2, act_s)
+    # the dictionary flags of active positions (the rest are masked in
+    # `_tokens`)
+    a_s = depth2 == 0
+    b_s = depth2 == 1
     packed = (((k2_s >> 4) << 5) | ((k2_s & 7) << 2)
               | (a_s.to(torch.int32) << 1) | b_s.to(torch.int32))
     (up,) = sort(packed, n_keys=1)

@@ -1,8 +1,9 @@
-"""Segmented move-to-front (MTF-K) depths: lion's 5-deep prediction queue.
+"""Segmented move-to-front (MTF-K) depths: lion's 5-deep prediction queue
+and the 2-deep dictionaries of cheetah and lion.
 
 Counterpart of the JAX package's `engine/mtf.py`. The scan itself, its
-monoid and its plain PyTorch version are in `kernels/mtf.py`; on the card
-it is one launch of `csrc/mtf.cu`.
+monoid and its plain PyTorch versions are in `kernels/mtf.py`; on the
+card it is one launch of `csrc/mtf.cu`.
 """
 
 from __future__ import annotations
@@ -15,6 +16,15 @@ from density_tpu_torch.kernels import mtf
 # (first, v_s, valid_s, K) -> int32 depths of values already grouped
 # contiguously: the kernel on the card, the doubling scan on the CPU
 mtf_depths_sorted = mtf.depths
+
+
+def mtf2_depths_sorted(first, v_s, valid_s):
+    """The copy-free planners' dictionary scan: the MTF-2 depth of each
+    valid element of values grouped by hash (segment starts `first`).
+    Depth 0 is a hit on the front (chunk_a), 1 a hit on the second
+    (chunk_b), 2 a miss or an invalid element. One K=2 launch on the
+    card, the MTF-2 doubling scan on the CPU."""
+    return mtf.depths(first, v_s, valid_s, 2)
 
 
 def mtf_depths_in_group(group, values, valid, K: int):

@@ -102,11 +102,14 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def count_launch(scope: dict) -> None:
+def count_launch(scope: dict, k=None) -> None:
     """Adds one to `launches` in `scope`, a kernel module's `globals()`
-    (the count `chip_smoke.py` reads), under a lock."""
+    (the count `chip_smoke.py` reads), and with `k` to `launches_k[k]`,
+    under a lock."""
     with _count_lock:
         scope["launches"] += 1
+        if k is not None:
+            scope["launches_k"][k] += 1
 
 
 def function(lib_name: str, fn_name: str, n_args: int, int_args):

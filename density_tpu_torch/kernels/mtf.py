@@ -1,4 +1,5 @@
-"""Segmented move-to-front (MTF-K) depths: lion's prediction-queue scan.
+"""Segmented move-to-front (MTF-K) depths: lion's prediction-queue scan
+(K = 5) and cheetah's and lion's dictionary scan (K = 2).
 
 Counterpart of the JAX package's `engine/mtf.py::mtf_depths_sorted`
 (a `jax.lax.associative_scan`; no Pallas kernel): lion's 5-deep
@@ -18,53 +19,65 @@ with zeros: its five zero sentinels sit below every live entry, so
                     else cnt_before if v == 0 and cnt_before < K,
                     else K (a miss).
 
-On a CUDA tensor `depths` launches `csrc/mtf.cu` (one launch and, for
-rows above 4096 elements, a memset of its look-back words); on a CPU
-tensor it runs `depths_plain`, the doubling scan in plain PyTorch.
+The dictionaries of cheetah and lion (chunk_a, chunk_b of a hash,
+cheetah.rs:131-139) are the same monoid at K = 2: depth 0 is a hit on
+chunk_a, depth 1 a hit on chunk_b.
+
+On a CUDA tensor `depths` launches `csrc/mtf.cu` at K = 5 or K = 2 (one
+launch and, for rows above one tile, a memset of its look-back words);
+on a CPU tensor it runs `depths_plain` at K = 5 and `mtf2_plain` at
+K = 2 (`engine/grouping.py`'s MTF-2 doubling scans).
 """
 
 from __future__ import annotations
 
 import torch
 
-from density_tpu_torch.engine.grouping import monoid_scan, shift_right
+from density_tpu_torch.engine.grouping import (
+    monoid_scan, seg_mtf2_before, seg_mtf2_before_packed, shift_right)
 from density_tpu_torch.kernels import _build
 
 launches = 0  # kernel launches through `depths` (see chip_smoke.py)
+launches_k = {2: 0, 5: 0}  # the same launches by K
+# the C entry point and tile of each K
+_ENTRY = {5: ("mtf_depths", "mtf_tile"), 2: ("mtf2_depths", "mtf2_tile")}
 
 
 def depths(first, v_s, valid_s, K: int):
     """Sorted-domain core: (..., n) values already grouped contiguously
     (segment starts marked by `first`), valid elements only. Returns the
     MTF-K depth of each element at its arrival, int32 in [0, K] (K: a
-    miss; invalid elements get K).
+    miss; invalid elements get K). K is 5 or 2; any other K raises.
 
     On the card: `first` and `valid_s` bool, `v_s` int32, one shape, all
-    contiguous on one device, K = 5; anything else raises."""
+    contiguous on one device; anything else raises."""
+    if K not in _ENTRY:
+        raise ValueError(f"the MTF kernel is built for K=5 and K=2, not "
+                         f"K={K}")
     if first.device.type != "cuda":
+        if K == 2:
+            return mtf2_plain(first, v_s, valid_s)
         return depths_plain(first, v_s, valid_s, K)
-    _check_args(first, v_s, valid_s, K)
+    _check_args(first, v_s, valid_s)
     out = torch.empty(v_s.shape, dtype=torch.int32, device=v_s.device)
     n = v_s.shape[-1]
     S = v_s.numel() // n if n else 0
     if S == 0:
         return out
-    lib = _build.load("mtf")
-    tiles = -(-n // lib.mtf_tile())
-    # look-back words: a status word and 10 slot values a tile
-    scratch = (torch.empty(11 * S * tiles, dtype=torch.int32,
+    entry, tile = _ENTRY[K]
+    tiles = -(-n // getattr(_build.load("mtf"), tile)())
+    # look-back words: a status word and 2K slot values a tile
+    scratch = (torch.empty((1 + 2 * K) * S * tiles, dtype=torch.int32,
                            device=v_s.device) if tiles > 1 else None)
-    fn = _build.function("mtf", "mtf_depths", 8, (5, 6))
+    fn = _build.function("mtf", entry, 8, (5, 6))
     _build.launch(fn, "mtf", v_s.device, _build.ptr(first), _build.ptr(v_s),
                   _build.ptr(valid_s), _build.ptr(out), _build.ptr(scratch),
                   S, n)
-    _build.count_launch(globals())
+    _build.count_launch(globals(), K)
     return out
 
 
-def _check_args(first, v_s, valid_s, K):
-    if K != 5:
-        raise ValueError(f"the MTF kernel is built for K=5, not K={K}")
+def _check_args(first, v_s, valid_s):
     if (first.dtype, v_s.dtype, valid_s.dtype) != (
             torch.bool, torch.int32, torch.bool):
         raise ValueError("first and valid must be bool, the values int32")
@@ -134,3 +147,19 @@ def depths_plain(first, v_s, valid_s, K: int):
     zero_pad = (v_s == 0) & (cnt_before < K)
     depth = torch.where(at < K, at, torch.where(zero_pad, cnt_before, K))
     return torch.where(valid_s, depth, K).to(torch.int32)
+
+
+def mtf2_plain(first, v_s, valid_s):
+    """`depths` at K = 2 from the MTF-2 doubling scan of the dictionaries
+    (`seg_mtf2_before`; its packed form while every valid value fits in
+    17 bits, as the planners' in-group fingerprints do). On a valid
+    element, a hit on the front is depth 0 and one on the second depth 1.
+    Both slots read 0 while empty, so a value of 0 gets the live count
+    while the list is not full (the front reads 0 only with count 0,
+    the second with count 0 or 1), and anything else misses."""
+    v_s = v_s.to(torch.int32)
+    narrow = not bool((valid_s & ((v_s >> 17) != 0)).any())
+    front, second = (seg_mtf2_before_packed if narrow else seg_mtf2_before)(
+        first, v_s, valid_s)
+    depth = torch.where(v_s == front, 0, torch.where(v_s == second, 1, 2))
+    return torch.where(valid_s, depth, 2).to(torch.int32)

@@ -797,10 +797,29 @@ def test_a_span_encloses_its_kernels_on_the_profilers_clock(cuda):
     assert len(shares) == 3  # two shares and the tail's batch
 
 
-# ------------------------------------------------------ MTF-5 scan (mtf.cu)
+# ------------------------------------------- MTF-5 and MTF-2 scans (mtf.cu)
 
-MTF_KINDS = ["plan", "one_segment", "each_alone", "zeros", "invalid_runs",
-             "boundaries"]
+MTF_KINDS = ["plan", "dictionary", "one_segment", "each_alone", "zeros",
+             "invalid_runs", "boundaries"]
+
+
+def _dictionary_inputs(cuda, S, n, seed):
+    """(first, values, active) of cheetah's copy-free plan of `_data` on
+    the card, as it hands them to its MTF-2 scan: 17-bit in-group
+    fingerprints up to 65536 quads a row, whole fingerprints (the 2-key
+    branch) above."""
+    from density_tpu_torch.codecs import cheetah
+    quads = torch.from_numpy(np.frombuffer(
+        _data(seed, S * n * 4), np.int32).reshape(S, n).copy())
+    nbytes = torch.full((S,), n * 4 - 4 * (n // 4), dtype=torch.int32)
+    seen, scan = [], cheetah.mtf2_depths_sorted
+    cheetah.mtf2_depths_sorted = lambda *a: seen.append(a) or scan(*a)
+    try:
+        cheetah.plan_fast(quads.to(cuda), nbytes.to(cuda))
+    finally:
+        cheetah.mtf2_depths_sorted = scan
+    (ops,) = seen
+    return ops
 
 
 def _mtf_inputs(kind, S, n, seed):
@@ -848,19 +867,27 @@ def _mtf_inputs(kind, S, n, seed):
     return tuple(torch.from_numpy(x) for x in (first, vals, valid))
 
 
+@pytest.mark.parametrize("K", [5, 2])
 @pytest.mark.parametrize("kind", MTF_KINDS)
 @pytest.mark.parametrize("S,n", [(38, 4096), (1, 4096), (38, 65536),
                                  (1, 65536), (1, 1 << 22)])
-def test_mtf_matches_plain(cuda, S, n, kind):
-    """The kernel equals the plain doubling scan bit for bit, in rows of
-    one tile and of many tiles (whose look-back carries the queue)."""
+def test_mtf_matches_plain(cuda, S, n, kind, K):
+    """The kernel equals the plain doubling scan bit for bit at both K,
+    in rows of one tile and of many tiles (whose look-back carries the
+    list); at K=2 also the planners' MTF-2 op chain."""
     from density_tpu_torch.kernels import mtf
-    first, vals, valid = (x.to(cuda) for x in _mtf_inputs(kind, S, n, n + S))
-    got = mtf.depths(first, vals, valid, 5)
+    if kind == "dictionary":
+        first, vals, valid = _dictionary_inputs(cuda, S, n, n + S)
+    else:
+        first, vals, valid = (x.to(cuda)
+                              for x in _mtf_inputs(kind, S, n, n + S))
+    got = mtf.depths(first, vals, valid, K)
     torch.cuda.synchronize()
-    want = mtf.depths_plain(first, vals, valid, 5)
+    want = mtf.depths_plain(first, vals, valid, K)
     assert got.dtype == torch.int32 and torch.equal(got, want)
-    assert bool((want < 5).any())
+    assert bool((want < K).any())
+    if K == 2:
+        assert torch.equal(got, mtf.mtf2_plain(first, vals, valid))
 
 
 def test_mtf_depths_in_group_on_card(cuda):
@@ -879,7 +906,8 @@ def test_mtf_depths_in_group_on_card(cuda):
 def test_mtf_one_launch_a_scan(cuda):
     """A scan is one launch of the wrapper's count and one kernel event in
     the profiler's trace, and no other kernel runs (the memset of the
-    look-back words is no kernel); lion's copy-free plan scans once."""
+    look-back words is no kernel); lion's copy-free plan scans twice:
+    its queue at K=5 and its dictionaries at K=2."""
     from density_tpu_torch.codecs import lion
     from density_tpu_torch.engine.mtf import mtf_depths_sorted
     from density_tpu_torch.kernels import mtf
@@ -904,9 +932,51 @@ def test_mtf_one_launch_a_scan(cuda):
     quads = torch.from_numpy(np.frombuffer(
         _data(24, 4 * 65536 * 4), np.int32).reshape(4, 65536).copy())
     nbytes = torch.full((4,), 4 * 65536, dtype=torch.int32)
-    before = mtf.launches
+    before = mtf.launches, dict(mtf.launches_k)
     lion.plan_fast(quads.to(cuda), nbytes.to(cuda))
-    assert mtf.launches == before + 1
+    # the prediction queue at K=5 and the dictionaries at K=2
+    assert mtf.launches == before[0] + 2
+    assert mtf.launches_k == {2: before[1][2] + 1, 5: before[1][5] + 1}
+
+
+def test_mtf2_one_launch_a_scan(cuda):
+    """At K=2 a scan is one launch, counted under K=2, and one kernel
+    event in the profiler's trace; cheetah's copy-free plan scans its
+    dictionaries once, at K=2 alone."""
+    from density_tpu_torch.codecs import cheetah
+    from density_tpu_torch.engine.mtf import mtf2_depths_sorted
+    from density_tpu_torch.kernels import mtf
+    first, vals, valid = _dictionary_inputs(cuda, 38, 65536, 26)
+    before = mtf.launches, dict(mtf.launches_k)
+    mtf2_depths_sorted(first, vals, valid)
+    assert mtf.launches == before[0] + 1
+    assert mtf.launches_k == {2: before[1][2] + 1, 5: before[1][5]}
+    fn = lambda: mtf2_depths_sorted(first, vals, valid)  # noqa: E731
+    assert _traced_launches(fn, names=("mtf_kernel",)) == 3
+    quads = torch.from_numpy(np.frombuffer(
+        _data(27, 4 * 65536 * 4), np.int32).reshape(4, 65536).copy())
+    nbytes = torch.full((4,), 4 * 65536, dtype=torch.int32)
+    before = dict(mtf.launches_k)
+    cheetah.plan_fast(quads.to(cuda), nbytes.to(cuda))
+    assert mtf.launches_k == {2: before[2] + 1, 5: before[5]}
+
+
+@pytest.mark.parametrize("codec", ["cheetah", "lion"])
+def test_plan_fast_on_card_equals_cpu(cuda, codec):
+    """Cheetah's and lion's copy-free plans of 38 streams of 65536 quads
+    (the bulk cells' batch), with their scans on the card, equal the
+    CPU's."""
+    import importlib
+    mod = importlib.import_module(f"density_tpu_torch.codecs.{codec}")
+    quads = torch.from_numpy(np.frombuffer(
+        _data(28, 38 * 65536 * 4), np.int32).reshape(38, 65536).copy())
+    nbytes = torch.full((38,), 4 * 65536, dtype=torch.int32)
+    nbytes[-1] = 4 * 40000 + 3
+    got = mod.plan_fast(quads.to(cuda), nbytes.to(cuda))
+    want = mod.plan_fast(quads, nbytes)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 def test_mtf_rejects_what_it_does_not_take(cuda):
@@ -915,8 +985,8 @@ def test_mtf_rejects_what_it_does_not_take(cuda):
     from density_tpu_torch.kernels import mtf
     first, vals, valid = (x.to(cuda) for x in _mtf_inputs("plan", 2, 8192,
                                                          25))
-    before = mtf.launches
-    for args in ((first, vals, valid, 4),
+    before = mtf.launches, dict(mtf.launches_k)
+    for args in ((first, vals, valid, 4), (first, vals, valid, 3),
                  (first, vals.long(), valid, 5),
                  (first.int(), vals, valid, 5),
                  (first, vals, valid[:, :4096], 5),
@@ -924,9 +994,10 @@ def test_mtf_rejects_what_it_does_not_take(cuda):
                  (first, vals.cpu(), valid, 5)):
         with pytest.raises(ValueError):
             mtf.depths(*args)
-    assert mtf.launches == before
+    assert (mtf.launches, mtf.launches_k) == before
     empty = mtf.depths(first[:0], vals[:0], valid[:0], 5)
-    assert empty.shape == (0, 8192) and mtf.launches == before
+    assert empty.shape == (0, 8192)
+    assert (mtf.launches, mtf.launches_k) == before
 
 
 # ------------------------------------------- protection FSM step (fsm.cu)

@@ -76,8 +76,9 @@ DECODE = {"chameleon": {"native.scan", "sharding.share", "sharding.stage",
                         "wait.to_card", "wait.read"},
           "cheetah": {"native.scan", "native.pool"},
           "lion": {"native.scan", "native.pool"}}
-# cheetah's planner scans its MTF-2 dictionaries in a span of their own
-PLAN = {"cheetah": {"engine.mtf2"}}
+# cheetah's and lion's planners scan their MTF-2 dictionaries in a span
+# of their own
+PLAN = {"cheetah": {"engine.mtf2"}, "lion": {"engine.mtf2"}}
 
 
 @pytest.mark.parametrize("codec", CODECS)
@@ -215,12 +216,13 @@ def test_resolve_rounds_are_spans_of_the_device_decode(monkeypatch):
     assert all(decode[1] <= s[1] and s[2] <= decode[2] for s in got)
 
 
-def test_cheetah_scans_its_dictionaries_once_in_every_plan():
-    """Cheetah on text and random bytes in turns: each copy-free plan and
-    each masked plan of the fixed point holds one `engine.mtf2` span."""
+def _assert_one_scan_a_plan(codec):
+    """A compress, on the CPU, of text and random bytes in turns: each
+    copy-free plan and each masked plan of the fixed point holds one
+    `engine.mtf2` span."""
     data = _mixed(10, 2 * STREAM + 1000)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        container.compress(data, "cheetah", STREAM, device="cpu")
+        container.compress(data, codec, STREAM, device="cpu")
     spans = _spans(prof)
     plans = [s for s in spans if s[0].startswith("engine.plan")]
     scans = [s for s in spans if s[0] == "engine.mtf2"]
@@ -228,3 +230,15 @@ def test_cheetah_scans_its_dictionaries_once_in_every_plan():
     assert len(scans) == len(plans)
     for p in plans:
         assert sum(p[1] <= s[1] and s[2] <= p[2] for s in scans) == 1
+
+
+def test_cheetah_scans_its_dictionaries_once_in_every_plan():
+    """Cheetah on text and random bytes in turns: each copy-free plan and
+    each masked plan of the fixed point holds one `engine.mtf2` span."""
+    _assert_one_scan_a_plan("cheetah")
+
+
+def test_lion_scans_its_dictionaries_once_in_every_plan():
+    """Lion, as cheetah: one `engine.mtf2` span in each copy-free and
+    each masked plan."""
+    _assert_one_scan_a_plan("lion")
